@@ -1,0 +1,62 @@
+"""Proofs as plain data: numpy u64 arrays and ints, one key per field.
+
+`proof_to_numpy(StarkProof)` gives a dict with the fields of the JAX
+package's `StarkProof` (ethproof_tpu/stark/prove.py:228), `StarkOpenings`
+(:203), `TreeOpenings` (:191), `FriProof` and `FriQueryRound`
+(ethproof_tpu/fri/prove.py:49-65), nested as they are there. With it a
+caller can build the reference's dataclasses and run the reference
+verifier on a proof made by the port. Uses numpy only.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+
+
+def _u64(arr) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(arr, dtype=np.uint64))
+
+
+def _tree(t) -> Optional[Dict[str, np.ndarray]]:
+    if t is None:
+        return None
+    return {"values": _u64(t.values), "paths": _u64(t.paths)}
+
+
+def proof_to_numpy(proof) -> Dict[str, Any]:
+    o = proof.openings
+    f = proof.fri_proof
+    return {
+        "degree_bits": int(proof.degree_bits),
+        "public_inputs": [int(x) for x in proof.public_inputs],
+        "trace_cap": _u64(proof.trace_cap),
+        "aux_cap": None if proof.aux_cap is None else _u64(proof.aux_cap),
+        "quotient_cap": _u64(proof.quotient_cap),
+        "ctl_totals": [int(x) for x in proof.ctl_totals],
+        "openings": {
+            name: _u64(getattr(o, name))
+            for name in (
+                "trace_at_zeta", "trace_at_gzeta", "aux_at_zeta", "aux_at_gzeta",
+                "quotient_at_zeta", "fixed_at_zeta", "fixed_at_gzeta",
+            )
+        },
+        "fri_proof": {
+            "commit_caps": [_u64(c) for c in f.commit_caps],
+            "query_rounds": [
+                {"leaf_values": _u64(q.leaf_values), "merkle_paths": _u64(q.merkle_paths)}
+                for q in f.query_rounds
+            ],
+            "final_poly": _u64(f.final_poly),
+            "pow_witness": int(f.pow_witness),
+            "degree_bits": int(f.degree_bits),
+            "query_indices": (
+                None if f.query_indices is None
+                else np.asarray(f.query_indices, dtype=np.int64)),
+        },
+        "trace_query_openings": _tree(proof.trace_query_openings),
+        "aux_query_openings": _tree(proof.aux_query_openings),
+        "quotient_query_openings": _tree(proof.quotient_query_openings),
+        "fixed_query_openings": _tree(proof.fixed_query_openings),
+    }

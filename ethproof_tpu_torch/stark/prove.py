@@ -1,0 +1,565 @@
+"""STARK prover: trace commit -> aux commit -> quotient -> openings -> DEEP -> FRI.
+
+Counterpart: ethproof_tpu/stark/prove.py:62-659 and :846-1052
+(`commit_trace`, `_commit_gf`, `fixed_commitment`, `fixed_cap`,
+`StarkOpenings`, `StarkProof`, `TreeOpenings`, `_ctl_z_columns`,
+`_lookup_aux_columns`, `stark_prove`, `_compute_quotient`,
+`_compute_openings`, `_deep_composition`).
+
+Every array that spans the trace or LDE domain is an int64 tensor on one
+device; the transcript runs on the host. What differs from the counterpart:
+- the constraint sweep is the direct evaluation of `stark.eval` on the
+  torch `DeviceOps` (the counterpart's `_sweep_jit(..., use_jit=False)`
+  path, :735-843); its accumulators equal the IR executor's, since field
+  arithmetic is exact. The IR executor (ethproof_tpu/stark/ir.py) is not
+  ported yet;
+- `lax.associative_scan` becomes a log-depth (Hillis-Steele) scan under
+  field mul or add;
+- `fixed_cap` keeps only the in-memory cache: no artifact directory, no
+  mesh;
+- `custom_aux_columns` tables (recursion) raise NotImplementedError.
+
+Transcript (the verifier mirrors it exactly):
+  observe(public_inputs, degree_bits) -> [observe(fixed cap)] ->
+  observe(trace cap) -> [lookup alphas] -> [observe(aux cap) ->
+  observe(ctl totals)] -> alphas -> observe(quotient cap) -> zeta ->
+  observe(openings) -> fri_alpha -> FRI transcript.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..fri.challenger import Challenger
+from ..fri.config import StarkConfig
+from ..fri.prove import FriProof, fri_prove
+from ..gf import extension as gf2x
+from ..gf import field as gfp
+from ..gf import field_host as fh
+from ..gf.extension import GF2
+from ..hash import merkle
+from ..poly import four_step
+from ..poly import ntt as nttm
+from ..runtime.tracing import phase
+from .stark import (
+    ConstraintConsumer,
+    CtlInstance,
+    DeviceOps,
+    EvalContext,
+    LC,
+    Stark,
+    eval_ctl_constraints,
+    eval_lookup_constraints,
+    lookup_aux_count,
+)
+
+P = fh.P
+
+
+@dataclass
+class TraceCommitment:
+    """One commit (iNTT -> coset LDE -> Merkle tree) of a (cols, n) matrix."""
+
+    trace_gf: torch.Tensor  # (cols, n) values
+    coeffs: torch.Tensor  # (cols, n) coefficient form
+    lde: torch.Tensor  # (cols, n << rate_bits) coset LDE
+    tree: merkle.MerkleTree
+    cap: np.ndarray  # (4, 2^cap_height) u64
+
+
+def _commit_gf(a: torch.Tensor, config: StarkConfig):
+    """(coeffs, lde, tree) for a (cols, n) field tensor."""
+    fri_cfg = config.fri_config
+    coeffs = four_step.best_intt(a)
+    lde = four_step.best_coset_lde(coeffs, fri_cfg.rate_bits, fri_cfg.coset_shift)
+    return coeffs, lde, merkle.build(lde, fri_cfg.cap_height)
+
+
+def commit_trace(trace: np.ndarray, config: StarkConfig, device=None) -> TraceCommitment:
+    """Commit a (cols, n) u64 trace on `device` (None: the CUDA card)."""
+    trace_gf = gfp.from_u64(trace, resolve_device(device))
+    coeffs, lde, tree = _commit_gf(trace_gf, config)
+    return TraceCommitment(trace_gf, coeffs, lde, tree, gfp.to_u64(tree.cap))
+
+
+def fixed_commitment(stark: Stark, n: int, config: StarkConfig, device=None) -> TraceCommitment:
+    """Commitment to the preprocessed (fixed) columns — the table's
+    verification key. Cached on the stark instance (latest size only)."""
+    dev = resolve_device(device)
+    cache = stark.__dict__.setdefault("_torch_fixed_cm_cache", {})
+    fri = config.fri_config
+    key = (n, fri.rate_bits, fri.cap_height, fri.coset_shift, str(dev))
+    if key not in cache:
+        cache.clear()  # hold at most one size: the LDE is the big object
+        cache[key] = commit_trace(stark.fixed_columns(n), config, dev)
+    return cache[key]
+
+
+def fixed_cap(stark: Stark, n: int, config: StarkConfig, device=None) -> np.ndarray:
+    """The vkey cap only, as the verifier consumes it (in-memory cache)."""
+    mem = stark.__dict__.setdefault("_torch_fixed_cap_cache", {})
+    fri = config.fri_config
+    key = (n, fri.rate_bits, fri.cap_height, fri.coset_shift)
+    if key not in mem:
+        mem[key] = fixed_commitment(stark, n, config, device).cap
+    return mem[key]
+
+
+@dataclass
+class TreeOpenings:
+    """Openings of one oracle tree at the FRI query indices."""
+
+    values: np.ndarray  # (num_q, num_rows) u64 — leaf rows at each index
+    paths: np.ndarray  # (num_q, path_len, 4) u64
+
+
+def _empty_ext() -> np.ndarray:
+    return np.zeros((0, 2), dtype=np.uint64)
+
+
+@dataclass
+class StarkOpenings:
+    trace_at_zeta: np.ndarray  # (cols, 2) u64 ext
+    trace_at_gzeta: np.ndarray  # (cols, 2)
+    aux_at_zeta: np.ndarray  # (num_aux, 2)
+    aux_at_gzeta: np.ndarray  # (num_aux, 2)
+    quotient_at_zeta: np.ndarray  # (num_challenges * chunks, 2)
+    fixed_at_zeta: np.ndarray = field(default_factory=_empty_ext)  # (num_fixed, 2)
+    fixed_at_gzeta: np.ndarray = field(default_factory=_empty_ext)  # (num_fixed, 2)
+
+    def transcript_elements(self) -> List[int]:
+        out: List[int] = []
+        for arr in (
+            self.trace_at_zeta, self.trace_at_gzeta,
+            self.fixed_at_zeta, self.fixed_at_gzeta,
+            self.aux_at_zeta, self.aux_at_gzeta,
+            self.quotient_at_zeta,
+        ):
+            out.extend(int(v) for v in np.asarray(arr, dtype=np.uint64).ravel())
+        return out
+
+
+@dataclass
+class StarkProof:
+    degree_bits: int
+    public_inputs: List[int]
+    trace_cap: np.ndarray  # (4, 2^cap_height) u64
+    aux_cap: Optional[np.ndarray]
+    quotient_cap: np.ndarray
+    ctl_totals: List[int]  # one per CtlInstance (base field)
+    openings: StarkOpenings
+    fri_proof: FriProof
+    trace_query_openings: TreeOpenings
+    aux_query_openings: Optional[TreeOpenings]
+    quotient_query_openings: TreeOpenings
+    fixed_query_openings: Optional[TreeOpenings] = None
+
+
+# -- device helpers ----------------------------------------------------------------
+
+
+def _scan(x: torch.Tensor, op) -> torch.Tensor:
+    """Inclusive prefix scan along the last axis under an associative,
+    commutative field op (log2 n steps)."""
+    n = x.shape[-1]
+    d = 1
+    while d < n:
+        x = torch.cat([x[..., :d], op(x[..., d:], x[..., :-d])], dim=-1)
+        d *= 2
+    return x
+
+
+def ext_powers(point: Tuple[int, int], n: int, device) -> GF2:
+    """[1, z, ..., z^(n-1)] by log-doubling in GF(p^2)."""
+    p = GF2(gfp.ones((1,), device), gfp.zeros((1,), device))
+    acc = gf2x.full((), point, device)
+    length = 1
+    while length < n:
+        nxt = gf2x.mul(p, acc)
+        p = GF2(torch.cat([p.a, nxt.a]), torch.cat([p.b, nxt.b]))
+        acc = gf2x.mul(acc, acc)
+        length *= 2
+    return p
+
+
+def eval_at_ext_point(coeffs: torch.Tensor, pws: GF2) -> np.ndarray:
+    """Polys (cols, n) at the point whose powers are `pws` -> (cols, 2) u64."""
+    if coeffs.shape[0] == 0:
+        return _empty_ext()
+    ra = gfp.sum_dim(gfp.mul(coeffs, pws.a), -1)
+    rb = gfp.sum_dim(gfp.mul(coeffs, pws.b), -1)
+    return np.stack([gfp.to_u64(ra), gfp.to_u64(rb)], axis=-1)
+
+
+def _compute_openings(trace_c, fixed_c, aux_c, quot_c, zeta, gzeta) -> StarkOpenings:
+    n = trace_c.shape[-1]
+    dev = trace_c.device
+    pz = ext_powers(zeta, n, dev)
+    pg = ext_powers(gzeta, n, dev)
+    return StarkOpenings(
+        trace_at_zeta=eval_at_ext_point(trace_c, pz),
+        trace_at_gzeta=eval_at_ext_point(trace_c, pg),
+        fixed_at_zeta=eval_at_ext_point(fixed_c, pz),
+        fixed_at_gzeta=eval_at_ext_point(fixed_c, pg),
+        aux_at_zeta=eval_at_ext_point(aux_c, pz),
+        aux_at_gzeta=eval_at_ext_point(aux_c, pg),
+        quotient_at_zeta=eval_at_ext_point(quot_c, pz),
+    )
+
+
+def _domain_points(log_m: int, shift: int, device) -> torch.Tensor:
+    w = fh.primitive_root_of_unity(log_m)
+    return gfp.mul_const(nttm.powers(w, 1 << log_m, device), shift)
+
+
+def _zh_short(log_n: int, rate_bits: int, shift: int, device) -> torch.Tensor:
+    """Z_H(x) = x^n - 1 over the LDE coset repeats with period 2^rate_bits:
+    its first period."""
+    u = fh.exp(fh.primitive_root_of_unity(log_n + rate_bits), 1 << log_n)
+    base = nttm.powers(u, 1 << rate_bits, device)
+    return gfp.sub(gfp.mul_const(base, fh.exp(shift, 1 << log_n)), gfp.ones(base.shape, device))
+
+
+def _roll_cols(a: torch.Tensor, k: int) -> torch.Tensor:
+    """Next-row view: rotate the domain axis left by k (g_H step = rate)."""
+    return torch.roll(a, -k, dims=-1)
+
+
+def _open_tree(tree: merkle.MerkleTree, rows: torch.Tensor, idx: torch.Tensor) -> TreeOpenings:
+    vals = gfp.to_u64(rows[:, idx])  # (rows, q)
+    paths = np.transpose(gfp.to_u64(merkle.open_path(tree, idx)), (2, 0, 1))
+    return TreeOpenings(values=np.ascontiguousarray(vals.T), paths=np.ascontiguousarray(paths))
+
+
+# -- aux columns ----------------------------------------------------------------
+
+
+def _column_values(trace_gf: torch.Tensor, fixed_gf: Optional[torch.Tensor]):
+    """Row list; indices >= the trace's column count address fixed columns."""
+    cols = list(trace_gf)
+    if fixed_gf is not None:
+        cols += list(fixed_gf)
+    return cols
+
+
+def _ctl_z_columns(trace_gf: torch.Tensor, instances: List[CtlInstance],
+                   fixed_gf: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Z columns (num_instances, n): running products of the CTL factors."""
+    cols = _column_values(trace_gf, fixed_gf)
+    n = trace_gf.shape[-1]
+    dev = trace_gf.device
+
+    def col_val(j):
+        if not isinstance(j, LC):
+            return cols[j]
+        acc = gfp.full((n,), j.const, dev)
+        for c, coeff in j.terms:
+            acc = gfp.add(acc, gfp.mul_const(cols[c], coeff))
+        return acc
+
+    factors = []
+    for inst in instances:
+        acc = gfp.full((n,), inst.gamma, dev)
+        b = 1
+        for j in inst.spec.columns:
+            acc = gfp.add(acc, gfp.mul_const(col_val(j), b))
+            b = b * inst.beta % P
+        if inst.spec.filter_col is not None:
+            one = gfp.ones((n,), dev)
+            acc = gfp.add(gfp.mul(cols[inst.spec.filter_col], gfp.sub(acc, one)), one)
+        factors.append(acc)
+    return _scan(torch.stack(factors), gfp.mul)
+
+
+def _lookup_aux_columns(trace_gf: torch.Tensor, stark: Stark, alphas: List[int],
+                        fixed_gf: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+    """logUp witness columns, layout per spec, per alpha: h_0..h_k-1, g, S."""
+    if not stark.lookups:
+        return None
+    cols = _column_values(trace_gf, fixed_gf)
+    n = trace_gf.shape[-1]
+    dev = trace_gf.device
+    rows = []
+    for spec in stark.lookups:
+        k = len(spec.looking_cols)
+        v = torch.stack([cols[j] for j in spec.looking_cols])  # (k, n)
+        t = cols[spec.table_col]
+        m_col = cols[spec.multiplicity_col]
+        for alpha in alphas:
+            hs = gfp.inv(gfp.sub(gfp.full((k, n), alpha, dev), v))
+            g = gfp.mul(m_col, gfp.inv(gfp.sub(gfp.full((n,), alpha, dev), t)))
+            delta = gfp.sub(gfp.sum_dim(hs, 0), g)
+            rows.extend(list(hs) + [g, _scan(delta, gfp.add)])
+    return torch.stack(rows)
+
+
+# -- prover ------------------------------------------------------------------------
+
+
+def stark_prove(
+    stark: Stark,
+    trace: np.ndarray,  # (num_columns, n) u64
+    public_inputs: List[int],
+    config: StarkConfig,
+    challenger: Optional[Challenger] = None,
+    ctl_instances: Optional[List[CtlInstance]] = None,
+    commitment: Optional[TraceCommitment] = None,
+    device=None,
+    phase_times: Optional[Dict[str, float]] = None,
+) -> StarkProof:
+    """Prove `trace` satisfies `stark` on `device` (None: the CUDA card).
+
+    `phase_times`, when given, receives the seconds of the commit, aux,
+    quotient, openings and deep_fri phases."""
+    dev = resolve_device(device)
+    fri_cfg = config.fri_config
+    cols, n = trace.shape
+    assert cols == stark.num_columns
+    assert len(public_inputs) == stark.num_public_inputs
+    log_n = n.bit_length() - 1
+    assert 1 << log_n == n
+    rate_bits = fri_cfg.rate_bits
+    shift = fri_cfg.coset_shift
+    instances = ctl_instances or []
+    if stark.num_custom_aux(config.num_challenges) or stark.num_aux_challenges(
+        config.num_challenges
+    ):
+        raise NotImplementedError("custom aux columns (recursion tables) are not ported yet")
+
+    if challenger is None:
+        challenger = Challenger()
+    challenger.observe_elements([x % P for x in public_inputs])
+    challenger.observe_element(log_n)
+
+    # 0. fixed-column (vkey) commitment, observed before the trace cap;
+    # 1. the trace commitment
+    with phase("commit", phase_times, dev):
+        fixed_cm: Optional[TraceCommitment] = None
+        if stark.num_fixed_columns:
+            fixed_cm = fixed_commitment(stark, n, config, dev)
+            challenger.observe_cap(fixed_cm.cap)
+        if commitment is None:
+            commitment = commit_trace(trace, config, dev)
+    trace_lde = commitment.lde
+    challenger.observe_cap(commitment.cap)
+
+    # 2. aux commit: CTL Z columns + logUp witness columns
+    lookup_alphas: List[int] = []
+    if stark.lookups:
+        lookup_alphas = [challenger.get_challenge() for _ in range(config.num_challenges)]
+    aux_tree = aux_lde = aux_coeffs = None
+    aux_cap = None
+    ctl_totals: List[int] = []
+    with phase("aux", phase_times, dev):
+        aux_parts: List[torch.Tensor] = []
+        fixed_gf = fixed_cm.trace_gf if fixed_cm is not None else None
+        if instances:
+            z_cols = _ctl_z_columns(commitment.trace_gf, instances, fixed_gf)
+            ctl_totals = [int(v) for v in gfp.to_u64(z_cols[:, -1])]
+            aux_parts.append(z_cols)
+        lk_cols = _lookup_aux_columns(commitment.trace_gf, stark, lookup_alphas, fixed_gf)
+        if lk_cols is not None:
+            aux_parts.append(lk_cols)
+        if aux_parts:
+            aux_coeffs, aux_lde, aux_tree = _commit_gf(torch.cat(aux_parts), config)
+            aux_cap = gfp.to_u64(aux_tree.cap)
+            challenger.observe_cap(aux_cap)
+            if instances:
+                challenger.observe_elements(ctl_totals)
+
+    # 3. constraint sweep -> quotient
+    alphas = [challenger.get_challenge() for _ in range(config.num_challenges)]
+    with phase("quotient", phase_times, dev):
+        quotient_lde, quotient_tree = _compute_quotient(
+            stark, trace_lde, aux_lde, instances, ctl_totals, lookup_alphas,
+            public_inputs, alphas, log_n, rate_bits, shift, fri_cfg,
+            fixed_lde=fixed_cm.lde if fixed_cm is not None else None,
+        )
+        quotient_cap = gfp.to_u64(quotient_tree.cap)
+    challenger.observe_cap(quotient_cap)
+
+    # 4. openings at zeta / g*zeta
+    zeta = challenger.get_extension_challenge()
+    g_h = fh.primitive_root_of_unity(log_n)
+    gzeta = (zeta[0] * g_h % P, zeta[1] * g_h % P)
+    with phase("openings", phase_times, dev):
+        quotient_coeffs = four_step.best_coset_intt(quotient_lde, shift)
+        empty = gfp.zeros((0, n), dev)
+        openings = _compute_openings(
+            commitment.coeffs,
+            fixed_cm.coeffs if fixed_cm is not None else empty,
+            aux_coeffs if aux_coeffs is not None else empty,
+            quotient_coeffs[:, :n], zeta, gzeta,
+        )
+    challenger.observe_elements(openings.transcript_elements())
+
+    # 5. DEEP composition codeword; 6. FRI + oracle query openings
+    fri_alpha = challenger.get_extension_challenge()
+    with phase("deep_fri", phase_times, dev):
+        comp = _deep_composition(
+            trace_lde, aux_lde, quotient_lde, openings, zeta, gzeta, fri_alpha,
+            log_n, rate_bits, shift,
+            fixed_lde=fixed_cm.lde if fixed_cm is not None else None,
+        )
+        fri_proof = fri_prove(comp, log_n, fri_cfg, challenger)
+        idx = torch.from_numpy(fri_proof.query_indices).to(dev)
+        proof = StarkProof(
+            degree_bits=log_n,
+            public_inputs=list(public_inputs),
+            trace_cap=commitment.cap,
+            aux_cap=aux_cap,
+            quotient_cap=quotient_cap,
+            ctl_totals=ctl_totals,
+            openings=openings,
+            fri_proof=fri_proof,
+            trace_query_openings=_open_tree(commitment.tree, trace_lde, idx),
+            aux_query_openings=(
+                _open_tree(aux_tree, aux_lde, idx) if aux_tree is not None else None),
+            quotient_query_openings=_open_tree(quotient_tree, quotient_lde, idx),
+            fixed_query_openings=(
+                _open_tree(fixed_cm.tree, fixed_cm.lde, idx) if fixed_cm is not None else None),
+        )
+    return proof
+
+
+def _sweep(stark, trace_lde, fixed_lde, aux_lde, instances, ctl_totals, lookup_alphas,
+           public_inputs, alphas, log_n, rate_bits, shift) -> List[torch.Tensor]:
+    """Direct evaluation of the table's eval (+ CTL and lookup constraints)
+    over the whole LDE domain -> one accumulator per alpha."""
+    dev = trace_lde.device
+    n = 1 << log_n
+    m = n << rate_bits
+    rate = 1 << rate_bits
+    xs = _domain_points(log_n + rate_bits, shift, dev)
+    zh = _zh_short(log_n, rate_bits, shift, dev).repeat(m >> rate_bits)
+    g_last = fh.inv(fh.primitive_root_of_unity(log_n))
+    n_inv = fh.inv(n)
+    z_last = gfp.sub(xs, gfp.full((), g_last, dev))
+    l_first = gfp.mul_const(gfp.mul(zh, gfp.inv(gfp.sub(xs, gfp.ones((), dev)))), n_inv)
+    l_last = gfp.mul_const(gfp.mul(zh, gfp.inv(z_last)), g_last * n_inv % P)
+
+    ops = DeviceOps((m,), dev)
+    local = list(trace_lde)
+    nxt = list(_roll_cols(trace_lde, rate))
+    fixed_local: List[torch.Tensor] = []
+    fixed_next: List[torch.Tensor] = []
+    if fixed_lde is not None:
+        fixed_local = list(fixed_lde)
+        fixed_next = list(_roll_cols(fixed_lde, rate))
+    pis = [ops.constant(int(x)) for x in public_inputs]
+    consumer = ConstraintConsumer(ops, alphas, z_last, l_first, l_last)
+    ctx = EvalContext(ops, local, nxt, pis, consumer, fixed_local, fixed_next)
+    stark.eval(ctx)
+    if aux_lde is not None:
+        aux_local = list(aux_lde)
+        aux_next = list(_roll_cols(aux_lde, rate))
+        k = len(instances)
+        if k:
+            eval_ctl_constraints(
+                ops, consumer, local + fixed_local, nxt + fixed_next,
+                aux_local[:k], aux_next[:k], instances, ctl_totals,
+            )
+        off = k
+        for spec in stark.lookups:
+            for alpha in lookup_alphas:
+                w = lookup_aux_count(spec)
+                eval_lookup_constraints(
+                    ops, consumer, local + fixed_local, nxt + fixed_next,
+                    aux_local[off : off + w], aux_next[off : off + w], spec, alpha,
+                )
+                off += w
+    return consumer.accs
+
+
+def _compute_quotient(stark, trace_lde, aux_lde, instances, ctl_totals, lookup_alphas,
+                      public_inputs, alphas, log_n, rate_bits, shift, fri_cfg,
+                      fixed_lde=None):
+    n = 1 << log_n
+    dev = trace_lde.device
+    if stark.num_fixed_columns:
+        assert fixed_lde is not None, "fixed tables must pass the committed LDE"
+    accs = _sweep(stark, trace_lde, fixed_lde if stark.num_fixed_columns else None, aux_lde,
+                  instances, ctl_totals, lookup_alphas, public_inputs, alphas,
+                  log_n, rate_bits, shift)
+    m = n << rate_bits
+    zh_inv = gfp.inv(_zh_short(log_n, rate_bits, shift, dev)).repeat(m >> rate_bits)
+    q_evals = gfp.mul(torch.stack(accs), zh_inv)  # (num_challenges, m)
+    q_coeffs = four_step.best_coset_intt(q_evals, shift)
+    chunks = stark.quotient_chunks(bool(instances))
+    q_chunks = q_coeffs[:, : chunks * n].reshape(len(accs) * chunks, n)
+    quotient_lde = four_step.best_coset_lde(q_chunks, rate_bits, shift)
+    return quotient_lde, merkle.build(quotient_lde, fri_cfg.cap_height)
+
+
+def _ext_host_mul(x, y):
+    return ((x[0] * y[0] + 7 * x[1] * y[1]) % P, (x[0] * y[1] + x[1] * y[0]) % P)
+
+
+def _weighted_ext_sum(weights, ys):
+    acc = (0, 0)
+    for w, y in zip(weights, ys):
+        t = _ext_host_mul(w, y)
+        acc = ((acc[0] + t[0]) % P, (acc[1] + t[1]) % P)
+    return acc
+
+
+def _batch_combine(rows: torch.Tensor, weights: List[Tuple[int, int]]) -> GF2:
+    """sum_j w_j * rows_j over base rows (k, m) with ext weights -> (m,) ext."""
+    dev = rows.device
+    wa = gfp.from_u64(np.asarray([w[0] for w in weights], dtype=np.uint64), dev)[:, None]
+    wb = gfp.from_u64(np.asarray([w[1] for w in weights], dtype=np.uint64), dev)[:, None]
+    return GF2(gfp.sum_dim(gfp.mul(rows, wa), 0), gfp.sum_dim(gfp.mul(rows, wb), 0))
+
+
+def _deep_composition(trace_lde, aux_lde, quotient_lde, openings: StarkOpenings, zeta, gzeta,
+                      fri_alpha, log_n, rate_bits, shift, fixed_lde=None) -> GF2:
+    """comp(x) = (B0(x)-y0)/(x-zeta) + (B1(x)-y1)/(x-g*zeta).
+
+    batch0 (opened at zeta): trace + fixed + aux + quotient rows, weights
+    a^0..; batch1 (opened at g*zeta): trace + fixed + aux rows, weights
+    continue a^K..."""
+    dev = trace_lde.device
+    m = 1 << (log_n + rate_bits)
+    xs = _domain_points(log_n + rate_bits, shift, dev)
+
+    parts1 = [trace_lde]
+    open0 = list(openings.trace_at_zeta)
+    open1 = list(openings.trace_at_gzeta)
+    if fixed_lde is not None:
+        parts1.append(fixed_lde)
+        open0 += list(openings.fixed_at_zeta)
+        open1 += list(openings.fixed_at_gzeta)
+    if aux_lde is not None:
+        parts1.append(aux_lde)
+        open0 += list(openings.aux_at_zeta)
+        open1 += list(openings.aux_at_gzeta)
+    open0 += list(openings.quotient_at_zeta)
+    b1_rows = torch.cat(parts1)
+    open0 = [(int(v[0]), int(v[1])) for v in open0]
+    open1 = [(int(v[0]), int(v[1])) for v in open1]
+
+    K = b1_rows.shape[0] + quotient_lde.shape[0]
+    L = b1_rows.shape[0]
+    a_pows = [(1, 0)]
+    for _ in range(K + L - 1):
+        a_pows.append(_ext_host_mul(a_pows[-1], fri_alpha))
+
+    b0 = _batch_combine(torch.cat([b1_rows, quotient_lde]), a_pows[:K])
+    y0 = _weighted_ext_sum(a_pows[:K], open0)
+    b1 = _batch_combine(b1_rows, a_pows[K:])
+    y1 = _weighted_ext_sum(a_pows[K:], open1)
+
+    x_ext = GF2(xs, torch.zeros_like(xs))
+    num0 = gf2x.sub(b0, gf2x.full((), y0, dev))
+    num1 = gf2x.sub(b1, gf2x.full((), y1, dev))
+    den0 = gf2x.sub(x_ext, gf2x.full((), zeta, dev))
+    den1 = gf2x.sub(x_ext, gf2x.full((), gzeta, dev))
+    t0 = gf2x.mul(num0, gf2x.inv(den0))
+    t1 = gf2x.mul(num1, gf2x.inv(den1))
+    assert t0.a.shape == (m,)
+    return gf2x.add(t0, t1)

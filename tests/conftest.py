@@ -43,6 +43,10 @@ def pytest_configure(config):
         "slow: proving tests too heavy for the CPU tier (run with --runslow "
         "or on TPU via the verify recipe)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (port kernels); skips without one",
+    )
 
 
 def pytest_addoption(parser):

@@ -1,0 +1,78 @@
+"""Port kernels on the CUDA card against their plain PyTorch versions.
+
+These need an NVIDIA card with the CUDA toolkit and skip elsewhere. They
+import no JAX, so on a card host without JAX they run with
+`python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q`.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ethproof_tpu_torch.fri.config import FriConfig, StarkConfig
+from ethproof_tpu_torch.gf import field as gfp
+from ethproof_tpu_torch.interop import proof_to_numpy
+from ethproof_tpu_torch.poly import base_dft as bd
+from ethproof_tpu_torch.poly import four_step
+from ethproof_tpu_torch.stark.prove import stark_prove
+from ethproof_tpu_torch.stark.verify import stark_verify
+from ethproof_tpu_torch.tables import memory as mem
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _assert_same(x, y):
+    if isinstance(x, dict):
+        assert x.keys() == y.keys()
+        for k in x:
+            _assert_same(x[k], y[k])
+    elif isinstance(x, list):
+        assert len(x) == len(y)
+        for u, v in zip(x, y):
+            _assert_same(u, v)
+    elif isinstance(x, np.ndarray):
+        np.testing.assert_array_equal(x, y)
+    else:
+        assert x == y
+
+
+def _vals(shape, seed):
+    return np.random.default_rng(seed).integers(0, gfp.P, size=shape, dtype=np.uint64)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("log_n", range(1, 9))
+def test_base_dft_kernel_equals_plain(card, log_n, inverse):
+    # a ragged row count exercises the kernel's partial last block
+    a = gfp.from_u64(_vals((1000 + log_n, 1 << log_n), log_n), card)
+    before = bd.LAUNCHES
+    got = bd.base_dft(a, log_n, inverse)
+    assert bd.LAUNCHES == before + 1
+    assert torch.equal(got, bd.base_dft_plain(a, log_n, inverse))
+
+
+def test_four_step_with_kernel_equals_cpu(card):
+    x = _vals((3, 1 << 12), 7)
+    on_card = four_step.best_coset_lde(four_step.best_intt(gfp.from_u64(x, card)), 2, 7)
+    on_cpu = four_step.best_coset_lde(four_step.best_intt(gfp.from_u64(x, "cpu")), 2, 7)
+    np.testing.assert_array_equal(gfp.to_u64(on_card), gfp.to_u64(on_cpu))
+
+
+def test_small_memory_proof_on_card_equals_cpu_and_verifies(card):
+    cfg = StarkConfig(num_challenges=2, fri_config=FriConfig(
+        rate_bits=2, cap_height=1, proof_of_work_bits=4, num_query_rounds=12,
+        arity_bits=2, final_poly_bits=2))
+    ops = [mem.MemoryOp(0, 1, 5, 1, 0, 1234), mem.MemoryOp(0, 1, 5, 2, 1, 1234),
+           mem.MemoryOp(0, 2, 0, 4, 1, 0)]
+    trace = mem.generate_trace(ops, 1 << 8)
+    got = stark_prove(mem.MemoryStark(), trace, [], cfg, device=card)
+    want = stark_prove(mem.MemoryStark(), trace, [], cfg, device="cpu")
+    _assert_same(proof_to_numpy(got), proof_to_numpy(want))
+    assert stark_verify(mem.MemoryStark(), got, cfg, device=card)

@@ -1,0 +1,106 @@
+"""The port imports neither JAX nor the JAX package, and its entry points
+refuse to run off the card unless the caller asks for the CPU."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+# one intra-op thread: the suite runs several pytest workers on few cores
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+MODULES = [
+    "ethproof_tpu_torch",
+    "ethproof_tpu_torch.interop",
+    "ethproof_tpu_torch.kernels",
+    "ethproof_tpu_torch.gf.field_host",
+    "ethproof_tpu_torch.gf.field",
+    "ethproof_tpu_torch.gf.extension",
+    "ethproof_tpu_torch.poly.ntt",
+    "ethproof_tpu_torch.poly.base_dft",
+    "ethproof_tpu_torch.poly.four_step",
+    "ethproof_tpu_torch.hash.constants",
+    "ethproof_tpu_torch.hash.poseidon",
+    "ethproof_tpu_torch.hash.merkle",
+    "ethproof_tpu_torch.fri.config",
+    "ethproof_tpu_torch.fri.challenger",
+    "ethproof_tpu_torch.fri.prove",
+    "ethproof_tpu_torch.fri.verify",
+    "ethproof_tpu_torch.stark.stark",
+    "ethproof_tpu_torch.stark.prove",
+    "ethproof_tpu_torch.stark.verify",
+    "ethproof_tpu_torch.tables.common",
+    "ethproof_tpu_torch.tables.memory",
+    "ethproof_tpu_torch.runtime.tracing",
+]
+
+
+def test_imports_without_jax_or_reference_package():
+    code = textwrap.dedent(
+        f"""
+        import importlib, sys
+        sys.modules["jax"] = None
+        sys.modules["ethproof_tpu"] = None
+        for name in {MODULES!r}:
+            importlib.import_module(name)
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "ethproof_tpu") and sys.modules[m] is not None]
+        assert not bad, bad
+        print("ok")
+        """
+    )
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def _cuda_absent():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card: the default device is valid")
+
+
+def test_default_device_raises_without_cuda():
+    _cuda_absent()
+    from ethproof_tpu_torch import resolve_device
+    from ethproof_tpu_torch.gf import field as gfp
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gfp.from_u64(np.arange(4, dtype=np.uint64))
+    assert gfp.from_u64(np.arange(4, dtype=np.uint64), "cpu").device.type == "cpu"
+
+
+def test_stark_prove_and_grind_refuse_the_cpu_by_default():
+    _cuda_absent()
+    from ethproof_tpu_torch.fri.config import StarkConfig
+    from ethproof_tpu_torch.fri.prove import grind_pow
+    from ethproof_tpu_torch.stark.prove import stark_prove
+    from ethproof_tpu_torch.tables import memory as mem
+
+    trace = mem.generate_trace([mem.MemoryOp(0, 1, 2, 1, 0, 5)], 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        stark_prove(mem.MemoryStark(), trace, [], StarkConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        grind_pow(123, 2)
+
+
+def test_base_dft_rejects_what_the_kernel_does_not_take():
+    from ethproof_tpu_torch.poly.base_dft import base_dft
+
+    a = torch.zeros((2, 8), dtype=torch.int64)
+    with pytest.raises(ValueError):
+        base_dft(a, 9, False)
+    with pytest.raises(ValueError):
+        base_dft(a, 2, False)
+    with pytest.raises(TypeError):
+        base_dft(a.to(torch.int32), 3, False)
