@@ -9,20 +9,34 @@ and the script exits non-zero; no phase's failure is caught):
              started together) and print the build seconds and ptxas report;
 2. kernels — hold each kernel against its plain PyTorch version on the card,
              bit for bit (the field is exact: the tolerance is zero), at the
-             main path's sizes, and time both;
+             main paths' sizes, and time both: `base_dft` (i8 encoding) and
+             `base_dft_bf16` (bf16 encoding, also against `base_dft_plain`,
+             and on the adversarial all-0xFF-chunk input);
 3. four-step — `best_intt` and `best_coset_lde` of a (28, 2^17) array with
              the kernel against the same with the plain base, on the card;
-4. slice   — a 2^9-row Memory proof made on the card must equal, field for
-             field, the one made by the plain path on the CPU; then the main
-             path: a 2^17-row MemoryStark proof under `standard_fast_config`
-             (launch counts reset just before it, read just after), verified
-             by the port's host verifier;
-5. result  — one JSON line per kernel, the card's name and power limit, and
-             the last line {"ok": true, "device": {...}}.
+4. memory  — a 2^9-row Memory proof made on the card must equal, field for
+             field, the one made by the plain path on the CPU; then a
+             2^17-row MemoryStark proof under `standard_fast_config` (launch
+             counts reset just before it, read just after), verified by the
+             port's host verifier;
+5. small transfer — a five-table transfer proof at the CPU tier's sizes,
+             made on the card under each NTT encoding, must equal the CPU
+             plain path's proof field for field, table by table;
+6. transfer — the slice's main path at full width: an EIP-1559 transfer
+             over a seeded 1,000-account state trie, `prove_transfer` with
+             TableSizes(cpu=12, arithmetic=16, logic=12, bytepacking=9,
+             memory=17, keccak=None) under `standard_fast_config`, with the
+             i8 encoding (launch counts reset just before, read just after),
+             verified by the port's `verify_transfer`; then again with the
+             bf16 encoding, whose proof must equal the i8 one field for field;
+7. result  — one JSON line listing every kernel, the card's name and power
+             limit, and the last line {"ok": true, "device": {...}}.
 
 `python3 chip_smoke.py --profile` instead builds the kernels and profiles
-one 2^17-row proof (device kernels by name, idle share, layer times); it
-prints no result line.
+one 2^17-row Memory proof (device kernels by name, idle share, layer
+times); `python3 chip_smoke.py --memory` proves the full-width transfer four
+times, with the Merkle-leaf and DEEP blocking off, on, on, off, and prints
+each phase's seconds and peak device memory. Neither prints a result line.
 
 Without a CUDA card, or run outside the repository, it exits non-zero and
 prints no result.
@@ -40,9 +54,16 @@ import numpy as np
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_OPS_PER_S = 989e12
 
 LOG_ROWS = 17  # MemoryStark floor: DEFAULT_RANGES["memory"] starts at 2^17
 TRACE_COLS = 28
+# the transfer's tables at the floors of the reference's production ranges
+# (ethproof_tpu/runtime/prover_state.py:26-34), without the keccak pair
+TRANSFER_LOGS = dict(cpu=12, arithmetic=16, logic=12, bytepacking=9, memory=17)
+ARITH_COLS = 430  # the arithmetic table: the largest trace of the transfer
+N_ACCOUNTS = 1000
+ADVERSARIAL = 0xFFFFFFFEFFFFFFFF  # canonical, seven of its eight bytes 0xFF
 
 
 def card_line() -> str:
@@ -84,11 +105,15 @@ def timed(fn):
 
 
 def max_abs_err(a, b) -> float:
+    """Largest |a - b| over u64 values; equal tensors are told apart on the
+    card, without copying them to the host."""
+    import torch
+
     from ethproof_tpu_torch.gf import field as gfp
 
-    x, y = gfp.to_u64(a), gfp.to_u64(b)
-    if np.array_equal(x, y):
+    if torch.equal(a, b):
         return 0.0
+    x, y = gfp.to_u64(a), gfp.to_u64(b)
     return float(np.max(np.abs(x.astype(np.float64) - y.astype(np.float64))))
 
 
@@ -131,11 +156,20 @@ def phase_build() -> None:
                 print(f"[build]   {line.strip()}")
 
 
+def bound(elements: int, n: int, weight_bytes: int, ops_per_s: float):
+    """(bound ms, what binds): the bytes the call must move (16 B per element
+    in and out, plus its weight table) over the HBM rate against its 2 * 64
+    * n operations per element (8 x 8 chunk or digit products per term) over
+    the tensor cores' peak for their type."""
+    bytes_s = (16 * elements + weight_bytes) / HBM_BYTES_PER_S
+    ops_s = 2 * 64 * n * elements / ops_per_s
+    return 1e3 * max(bytes_s, ops_s), "bytes" if bytes_s >= ops_s else "operations"
+
+
 def phase_kernels(card: str) -> dict:
     """base_dft against base_dft_plain for log_n 1..8, both directions, at
-    the main path's base-DFT call sizes (28 x 2^17 and 28 x 2^19 elements)."""
-    import torch
-
+    the Memory path's base-DFT call sizes (28 x 2^17 and 28 x 2^19
+    elements); base_dft_bf16 against the same base_dft_plain outputs."""
     from ethproof_tpu_torch.gf import field as gfp
     from ethproof_tpu_torch.poly import base_dft as bd
 
@@ -152,19 +186,21 @@ def phase_kernels(card: str) -> dict:
             n = 1 << log_n
             a = vals.reshape(total // n, n)
             for inverse in (False, True):
-                got = bd.base_dft(a, log_n, inverse)
+                got = bd.base_dft(a, log_n, inverse, "i8")
                 want, plain_ms = timed(lambda: bd.base_dft_plain(a, log_n, inverse))
                 err = max_abs_err(got, want)
                 if err != 0.0:
                     raise AssertionError(f"base_dft log_n={log_n} inverse={inverse} "
                                          f"elements={total}: kernel != plain ({err})")
-                ms = cuda_ms(lambda: bd.base_dft(a, log_n, inverse), 5)
-                bytes_s = (16 * total + 8 * n * n) / HBM_BYTES_PER_S
-                ops_s = 2 * 64 * n * total / INT8_OPS_PER_S
-                bound_ms = 1e3 * max(bytes_s, ops_s)
+                err16 = max_abs_err(bd.base_dft(a, log_n, inverse, "bf16"), want)
+                if err16 != 0.0:
+                    raise AssertionError(f"base_dft_bf16 log_n={log_n} inverse={inverse} "
+                                         f"elements={total}: kernel != base_dft_plain ({err16})")
+                ms = cuda_ms(lambda: bd.base_dft(a, log_n, inverse, "i8"), 5)
+                bound_ms, bound_by = bound(total, n, 8 * n * n, INT8_OPS_PER_S)
                 print(f"[kernels] elements=28*2^{total_log} shape=({total // n}, {n}) "
-                      f"inverse={inverse}: equal bits; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
-                      f"bound {bound_ms:.4f} ms")
+                      f"inverse={inverse}: equal bits (base_dft_bf16 too); kernel {ms:.4f} ms, "
+                      f"plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms")
                 if total_log == LOG_ROWS + 2 and log_n == 7 and not inverse:
                     report = {
                         "name": "base_dft",
@@ -176,10 +212,78 @@ def phase_kernels(card: str) -> dict:
                         "ms": ms,
                         "plain_ms": plain_ms,
                         "bound_ms": bound_ms,
-                        "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+                        "bound_by": bound_by,
                         "library_ms": None,
                     }
         del vals
+    return report
+
+
+def phase_kernels_bf16(card: str) -> dict:
+    """base_dft_bf16 against base_dft_bf16_plain, bit for bit, for log_n
+    1..8 both ways: on the adversarial input (every element 0xFFFFFFFE_
+    FFFFFFFF, which drives every dot to its largest sum; also held against
+    base_dft_plain) and on seeded random inputs at the transfer's largest
+    base-DFT call sizes (the arithmetic table's commit: 430 x 2^16 elements
+    in the iNTT, 430 x 2^18 in the coset LDE)."""
+    import torch
+
+    from ethproof_tpu_torch.gf import field as gfp
+    from ethproof_tpu_torch.poly import base_dft as bd
+
+    def check(a, log_n, inverse, what, against_i8_plain=False):
+        got = bd.base_dft(a, log_n, inverse, "bf16")
+        want, plain_ms = timed(lambda: bd.base_dft_bf16_plain(a, log_n, inverse))
+        err = max_abs_err(got, want)
+        if against_i8_plain:
+            err = max(err, max_abs_err(got, bd.base_dft_plain(a, log_n, inverse)))
+        if err != 0.0:
+            raise AssertionError(f"base_dft_bf16 log_n={log_n} inverse={inverse} {what}: "
+                                 f"kernel != plain ({err})")
+        return err, plain_ms
+
+    adv = torch.full((ARITH_COLS << 8,), gfp.to_i64(ADVERSARIAL), dtype=torch.int64,
+                     device="cuda")
+    for log_n in range(1, 9):
+        for inverse in (False, True):
+            check(adv.reshape(-1, 1 << log_n), log_n, inverse, "adversarial", True)
+    print(f"[kernels] base_dft_bf16 on {card}: the all-0x{ADVERSARIAL:X} input "
+          f"(430*2^8 elements) equals base_dft_bf16_plain and base_dft_plain, log_n 1..8 "
+          "both ways")
+    del adv
+
+    rng = np.random.default_rng(6)
+    report = None
+    for total_log, report_log_n in ((16, None), (18, 6)):
+        total = ARITH_COLS << total_log
+        vals = gfp.from_u64(rng.integers(0, gfp.P, size=total, dtype=np.uint64), "cuda")
+        for log_n in range(1, 9):
+            n = 1 << log_n
+            a = vals.reshape(total // n, n)
+            for inverse in (False, True):
+                err, plain_ms = check(a, log_n, inverse, f"elements=430*2^{total_log}")
+                ms = cuda_ms(lambda: bd.base_dft(a, log_n, inverse, "bf16"), 5)
+                bound_ms, bound_by = bound(total, n, 16 * n * n, BF16_OPS_PER_S)
+                print(f"[kernels] base_dft_bf16 elements=430*2^{total_log} shape=({total // n}, "
+                      f"{n}) inverse={inverse}: equal bits; kernel {ms:.4f} ms, plain "
+                      f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+                if log_n == report_log_n and not inverse:
+                    report = {
+                        "name": "base_dft_bf16",
+                        "route": "cuda",
+                        "source": "ethproof_tpu_torch/csrc/base_dft_bf16.cu",
+                        "replaces": "ethproof_tpu/poly/pallas_ntt.py:95",
+                        "launches": 0,
+                        "max_abs_err": err,
+                        "ms": ms,
+                        "plain_ms": plain_ms,
+                        "bound_ms": bound_ms,
+                        "bound_by": bound_by,
+                        "library_ms": None,
+                    }
+        del vals
+    print("[kernels] the JSON line reports base_dft_bf16 at (430*2^18 / 64, 64) forward, the "
+          "arithmetic table's coset-LDE base level")
     return report
 
 
@@ -229,22 +333,30 @@ def phase_small_proof() -> None:
     trace = mem.generate_trace(memory_ops(300, seed=3), 1 << 9)
     on_card = proof_to_numpy(stark_prove(mem.MemoryStark(), trace, [], config, device="cuda"))
     on_cpu = proof_to_numpy(stark_prove(mem.MemoryStark(), trace, [], config, device="cpu"))
-
-    def same(x, y):
-        if isinstance(x, dict):
-            return x.keys() == y.keys() and all(same(x[k], y[k]) for k in x)
-        if isinstance(x, list):
-            return len(x) == len(y) and all(same(u, v) for u, v in zip(x, y))
-        if isinstance(x, np.ndarray):
-            return np.array_equal(x, y)
-        return x == y
-
     if not same(on_card, on_cpu):
         raise AssertionError("the card's 2^9-row Memory proof differs from the CPU's")
     print("[slice] 2^9-row Memory proof: card and CPU plain path agree field for field")
 
 
-def phase_slice(card: str) -> int:
+def reset_launches() -> None:
+    from ethproof_tpu_torch.poly import base_dft as bd
+
+    for name in bd.LAUNCHES:
+        bd.LAUNCHES[name] = 0
+
+
+def same(x, y) -> bool:
+    """Field-for-field equality of two interop dicts (or lists of them)."""
+    if isinstance(x, dict):
+        return x.keys() == y.keys() and all(same(x[k], y[k]) for k in x)
+    if isinstance(x, list):
+        return len(x) == len(y) and all(same(u, v) for u, v in zip(x, y))
+    if isinstance(x, np.ndarray):
+        return np.array_equal(x, y)
+    return x == y
+
+
+def phase_slice(card: str) -> dict:
     import torch
 
     from ethproof_tpu_torch.fri.config import standard_fast_config
@@ -261,25 +373,121 @@ def phase_slice(card: str) -> int:
     config = standard_fast_config()
     stark = mem.MemoryStark()
     times: dict = {}
+    bd.ENCODING = "i8"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    bd.LAUNCHES = 0
+    reset_launches()
     t0 = time.perf_counter()
     proof = stark_prove(stark, trace, [], config, device="cuda", phase_times=times)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = bd.LAUNCHES
+    launches = dict(bd.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if launches <= 0:
-        raise AssertionError("the main path launched no base_dft kernel")
-    print(f"[slice] prove 2^{LOG_ROWS} rows on {card}: {wall:.3f} s, base_dft launches "
-          f"{launches}, peak device memory {peak_gb:.2f} GB")
+    if launches["base_dft"] <= 0:
+        raise AssertionError("the Memory path launched no base_dft kernel")
+    print(f"[slice] prove 2^{LOG_ROWS} rows on {card}: {wall:.3f} s, launches {launches}, "
+          f"peak device memory {peak_gb:.2f} GB")
     print("[slice] phase seconds " + json.dumps({k: round(v, 4) for k, v in times.items()}))
     t0 = time.perf_counter()
     ok = stark_verify(stark, proof, config, device="cuda")
     print(f"[slice] port stark_verify: {ok} in {time.perf_counter() - t0:.2f} s")
     if not ok:
         raise AssertionError("the 2^17-row Memory proof does not verify")
+    return launches
+
+
+def small_transfer_config():
+    """The CPU tier's configuration (tests/test_transfer_e2e.py:33)."""
+    from ethproof_tpu_torch.fri.config import FriConfig, StarkConfig
+
+    return StarkConfig(num_challenges=2, fri_config=FriConfig(
+        rate_bits=2, cap_height=1, proof_of_work_bits=4, num_query_rounds=12,
+        arity_bits=2, final_poly_bits=2))
+
+
+def phase_small_transfer() -> None:
+    """The card's five-table transfer proof at the CPU tier's sizes, under
+    each encoding, equals the CPU plain path's, table by table."""
+    from ethproof_tpu_torch.evm.transfer import prove_transfer
+    from ethproof_tpu_torch.interop import multi_proof_to_numpy
+    from ethproof_tpu_torch.poly import base_dft as bd
+    from ethproof_tpu_torch.tables.all import TableSizes
+    from ethproof_tpu_torch.witness import synthetic
+
+    gi, config = synthetic.small_transfer(), small_transfer_config()
+    sizes = TableSizes(cpu=5, arithmetic=6, logic=4, bytepacking=9, memory=7, keccak=None)
+    t0 = time.perf_counter()
+    on_cpu = multi_proof_to_numpy(prove_transfer(gi, config, sizes, device="cpu").multi)
+    cpu_s = time.perf_counter() - t0
+    for encoding in ("i8", "bf16"):
+        bd.ENCODING = encoding
+        t0 = time.perf_counter()
+        on_card = multi_proof_to_numpy(prove_transfer(gi, config, sizes, device="cuda").multi)
+        card_s = time.perf_counter() - t0
+        for t, (x, y) in enumerate(zip(on_card, on_cpu)):
+            if not same(x, y):
+                raise AssertionError(f"small transfer, {encoding}: table {t}'s proof on the "
+                                     "card differs from the CPU's")
+        print(f"[small transfer] {encoding}: card ({card_s:.2f} s) and CPU plain path "
+              f"({cpu_s:.2f} s) agree field for field in all {len(on_cpu)} tables")
+    bd.ENCODING = "i8"
+
+
+def phase_transfer(card: str) -> dict:
+    """The slice's main path at full width, once per encoding -> launches of
+    each kernel on its own encoding's run."""
+    import torch
+
+    from ethproof_tpu_torch.evm.transfer import prove_transfer, verify_transfer
+    from ethproof_tpu_torch.fri.config import standard_fast_config
+    from ethproof_tpu_torch.interop import multi_proof_to_numpy
+    from ethproof_tpu_torch.poly import base_dft as bd
+    from ethproof_tpu_torch.tables.all import TableSizes
+    from ethproof_tpu_torch.witness import synthetic
+
+    t0 = time.perf_counter()
+    gi = synthetic.seeded_transfer(N_ACCOUNTS, seed=5)
+    print(f"[transfer] witness: EIP-1559 transfer over a {N_ACCOUNTS}-account state trie, "
+          f"built in {time.perf_counter() - t0:.2f} s")
+    config = standard_fast_config()
+    sizes = TableSizes(**TRANSFER_LOGS, keccak=None)
+    proofs, launches = {}, {}
+    for encoding in ("i8", "bf16"):
+        bd.ENCODING = encoding
+        times: dict = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        proof = prove_transfer(gi, config, sizes, device="cuda", phase_times=times)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run = dict(bd.LAUNCHES)
+        kernel = bd.KERNELS[encoding]
+        if run[kernel] <= 0:
+            raise AssertionError(f"the {encoding} transfer proof launched no {kernel} kernel")
+        launches[kernel] = run[kernel]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        print(f"[transfer] {encoding}: prove_transfer {TRANSFER_LOGS} on {card}: {wall:.3f} s, "
+              f"launches {run}, peak device memory {peak_gb:.2f} GB")
+        for table, phases in times.items():
+            print(f"[transfer] {encoding}: {table} " + json.dumps(
+                {k: round(v, 4) for k, v in phases.items()}) +
+                f" sum {sum(phases.values()):.3f} s")
+        proofs[encoding] = multi_proof_to_numpy(proof.multi)
+        if encoding == "i8":
+            t0 = time.perf_counter()
+            ok = verify_transfer(proof, config, device="cuda")
+            print(f"[transfer] port verify_transfer: {ok} in {time.perf_counter() - t0:.2f} s")
+            if not ok:
+                raise AssertionError("the full-width transfer proof does not verify")
+        del proof
+    for t, (x, y) in enumerate(zip(proofs["bf16"], proofs["i8"])):
+        if not same(x, y):
+            raise AssertionError(f"transfer: table {t}'s bf16 proof differs from the i8 proof")
+    print(f"[transfer] the bf16 proof equals the i8 proof field for field in all "
+          f"{len(proofs['i8'])} tables")
+    bd.ENCODING = "i8"
     return launches
 
 
@@ -343,6 +551,66 @@ def phase_profile(card: str) -> None:
           f"one Poseidon permutation of 2^{LOG_ROWS + 2} states {t_perm * 1e3:.1f} ms")
 
 
+def phase_memory(card: str) -> None:
+    """Seconds and peak device memory of every phase of the full-width
+    transfer proof, with the Merkle-leaf and DEEP-combination blocking off
+    (blocks larger than any matrix) and on (the defaults): off, on, on,
+    off. The four proofs must be equal."""
+    import contextlib
+
+    import torch
+
+    from ethproof_tpu_torch.evm.transfer import prove_transfer
+    from ethproof_tpu_torch.fri.config import standard_fast_config
+    from ethproof_tpu_torch.hash import merkle
+    from ethproof_tpu_torch.interop import multi_proof_to_numpy
+    from ethproof_tpu_torch.runtime import tracing
+    from ethproof_tpu_torch.stark import multi, prove
+    from ethproof_tpu_torch.tables.all import TableSizes
+    from ethproof_tpu_torch.witness import synthetic
+
+    timed_phase = tracing.phase
+
+    @contextlib.contextmanager
+    def phase_with_peak(name, times, device):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with timed_phase(name, times, device):
+            yield
+        if times is not None:
+            times["GB_" + name] = round(torch.cuda.max_memory_allocated() / 1e9, 2)
+
+    prove.phase = multi.phase = phase_with_peak
+    defaults = (merkle.LEAF_BLOCK_ELEMS, prove.COMBINE_BLOCK_ELEMS)
+    gi = synthetic.seeded_transfer(N_ACCOUNTS, seed=5)
+    config = standard_fast_config()
+    sizes = TableSizes(**TRANSFER_LOGS, keccak=None)
+    proofs = []
+    for blocking in ("off", "on", "on", "off"):
+        merkle.LEAF_BLOCK_ELEMS, prove.COMBINE_BLOCK_ELEMS = (
+            defaults if blocking == "on" else (1 << 62, 1 << 62))
+        times: dict = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        proof = prove_transfer(gi, config, sizes, device="cuda", phase_times=times)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = max(v for phases in times.values() for k, v in phases.items()
+                   if k.startswith("GB_"))
+        print(f"[memory] blocking {blocking}: prove_transfer on {card}: {wall:.3f} s, "
+              f"peak device memory {peak:.2f} GB (the largest phase peak)")
+        for table, phases in times.items():
+            print(f"[memory]   {blocking} {table} " + json.dumps(
+                {k: round(v, 4) for k, v in phases.items()}))
+        proofs.append(multi_proof_to_numpy(proof.multi))
+        del proof
+    merkle.LEAF_BLOCK_ELEMS, prove.COMBINE_BLOCK_ELEMS = defaults
+    prove.phase = multi.phase = timed_phase
+    if not all(same(proofs[0], q) for q in proofs[1:]):
+        raise AssertionError("the blocking changed the proof")
+    print("[memory] the four proofs are equal field for field")
+
+
 def main() -> int:
     try:
         import torch
@@ -362,19 +630,25 @@ def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    if sys.argv[1:] == ["--profile"]:
+    modes = {"--profile": phase_profile, "--memory": phase_memory}
+    if len(sys.argv) == 2 and sys.argv[1] in modes:
         phase_build()
-        phase_profile(card)
+        modes[sys.argv[1]](card)
         return 0
     if sys.argv[1:]:
-        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (only --profile)", file=sys.stderr)
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (--profile or --memory)",
+              file=sys.stderr)
         return 2
     phase_build()
-    report = phase_kernels(card)
+    reports = [phase_kernels(card), phase_kernels_bf16(card)]
     phase_four_step()
     phase_small_proof()
-    report["launches"] = phase_slice(card)
-    print(json.dumps({"kernels": [report]}))
+    phase_slice(card)
+    phase_small_transfer()
+    launches = phase_transfer(card)
+    for report in reports:
+        report["launches"] = launches[report["name"]]
+    print(json.dumps({"kernels": reports}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"ok": True, "device": {

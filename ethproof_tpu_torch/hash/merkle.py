@@ -15,6 +15,11 @@ import torch
 
 from . import poseidon
 
+# Leaves are digested in domain blocks of at most this many input elements
+# (the counterpart's `_LEAF_BLOCK_ELEMS`, merkle.py:62): the permutation's
+# temporaries then scale with the block, not with the whole matrix.
+LEAF_BLOCK_ELEMS = 1 << 25
+
 
 class MerkleTree(NamedTuple):
     """levels[0] = leaf digests (4, N) ... levels[-1] = cap (4, 2^cap_height)."""
@@ -37,7 +42,9 @@ def build(rows: torch.Tensor, cap_height: int) -> MerkleTree:
     assert n & (n - 1) == 0, "leaf count must be a power of two"
     depth = n.bit_length() - 1
     assert 0 <= cap_height <= depth
-    digests = poseidon.tree_digest(rows)
+    block = max(1, LEAF_BLOCK_ELEMS // max(rows.shape[0], 1))
+    digests = torch.cat([poseidon.tree_digest(rows[:, s : s + block])
+                         for s in range(0, n, block)], dim=1)
     levels = [digests]
     for _ in range(depth - cap_height):
         digests = poseidon.two_to_one(digests[:, 0::2], digests[:, 1::2])

@@ -10,8 +10,8 @@ over the trailing axes. The MDS layer is one exact float64 matrix product
 per 32-bit limb: entries are < 2^6 and rows sum to < 2^9, so each limb sum
 is an integer < 2^41, exact in float64 whatever the summation order; one
 fold mod p per output lane follows. The counterpart's one-hot round
-constant selection and its `lax.map` leaf blocking exist for XLA and are
-not ported.
+constant selection exists for XLA and is not ported; its leaf blocking is
+`merkle.build`'s.
 
 The `*_host` functions are the python-int versions the Challenger and the
 host verifier use.
@@ -123,19 +123,31 @@ def tree_digest(inputs: torch.Tensor) -> torch.Tensor:
 # -- host (python int) versions ---------------------------------------------------
 
 _P = C.P
+_RC_ROWS = [[int(v) for v in row] for row in _RC]  # python ints: numpy scalars are slow
+# The MDS matrix is circulant plus a diagonal (constants.mds_matrix):
+# out_i = sum_k CIRC[k] * s[(i + k) % 12] + DIAG[i] * s[i]. One big-int product
+# gives every cyclic sum: the state packed in 80-bit slots times CIRC packed
+# in reversed slot order holds lane i's sum split over slots i and i + 12;
+# each slot stays < 12 * 2^6 * 2^64 < 2^80, so no carry crosses a slot.
+_SLOT_BYTES = 10
+_CIRC_PACKED = sum(int(c) << (8 * _SLOT_BYTES * ((SPONGE_WIDTH - k) % SPONGE_WIDTH))
+                   for k, c in enumerate(C.MDS_MATRIX_CIRC))
+_DIAG = [int(d) for d in C.MDS_MATRIX_DIAG]
 
 
-def _np_mds(state):
-    return [sum(int(_MDS[i, j]) * state[j] for j in range(SPONGE_WIDTH)) % _P
-            for i in range(SPONGE_WIDTH)]
+def _mds_host(s: list) -> list:
+    packed = int.from_bytes(b"".join(x.to_bytes(_SLOT_BYTES, "little") for x in s), "little")
+    t = (packed * _CIRC_PACKED).to_bytes(2 * SPONGE_WIDTH * _SLOT_BYTES, "little")
+    w = _SLOT_BYTES
+    return [(int.from_bytes(t[w * i : w * (i + 1)], "little")
+             + int.from_bytes(t[w * (i + SPONGE_WIDTH) : w * (i + SPONGE_WIDTH + 1)], "little")
+             + d * x) % _P for i, (d, x) in enumerate(zip(_DIAG, s))]
 
 
 def permute_host(state: Sequence[int]) -> list:
     s = [x % _P for x in state]
-    for r in range(C.N_ROUNDS):
-        s = [(x + int(_RC[r, i])) % _P for i, x in enumerate(s)]
-        s = [pow(x, C.SBOX_EXP, _P) for x in s]
-        s = _np_mds(s)
+    for rc in _RC_ROWS:
+        s = _mds_host([pow(x + c, C.SBOX_EXP, _P) for x, c in zip(s, rc)])
     return s
 
 

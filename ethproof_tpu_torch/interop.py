@@ -5,12 +5,17 @@ package's `StarkProof` (ethproof_tpu/stark/prove.py:228), `StarkOpenings`
 (:203), `TreeOpenings` (:191), `FriProof` and `FriQueryRound`
 (ethproof_tpu/fri/prove.py:49-65), nested as they are there. With it a
 caller can build the reference's dataclasses and run the reference
-verifier on a proof made by the port. Uses numpy only.
+verifier on a proof made by the port. `multi_proof_to_numpy` gives one
+such dict per table of a `MultiProof` (ethproof_tpu/stark/multi.py:46);
+`tx_proof_to_numpy` adds the statement of a transfer's `TxProof`
+(ethproof_tpu/evm/transfer.py:216): its PI words and the three parties.
+The witness is not converted: a caller rebuilds it with either package's
+constructors. Uses numpy only.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -59,4 +64,18 @@ def proof_to_numpy(proof) -> Dict[str, Any]:
         "aux_query_openings": _tree(proof.aux_query_openings),
         "quotient_query_openings": _tree(proof.quotient_query_openings),
         "fixed_query_openings": _tree(proof.fixed_query_openings),
+    }
+
+
+def multi_proof_to_numpy(multi) -> List[Dict[str, Any]]:
+    return [proof_to_numpy(p) for p in multi.proofs]
+
+
+def tx_proof_to_numpy(tx) -> Dict[str, Any]:
+    return {
+        "multi": multi_proof_to_numpy(tx.multi),
+        "pi_words": [int(w) for w in tx.pi_words],
+        "sender": bytes(tx.sender),
+        "recipient": bytes(tx.recipient),
+        "miner": bytes(tx.miner),
     }

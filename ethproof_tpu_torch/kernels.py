@@ -23,7 +23,7 @@ from typing import Dict, List, Tuple
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("base_dft",)
+SOURCES = ("base_dft", "base_dft_bf16")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

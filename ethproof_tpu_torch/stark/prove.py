@@ -508,12 +508,30 @@ def _weighted_ext_sum(weights, ys):
     return acc
 
 
-def _batch_combine(rows: torch.Tensor, weights: List[Tuple[int, int]]) -> GF2:
-    """sum_j w_j * rows_j over base rows (k, m) with ext weights -> (m,) ext."""
-    dev = rows.device
+# Rows of a DEEP batch are combined in blocks of at most this many elements:
+# the field product's temporaries then scale with the block, not the batch.
+COMBINE_BLOCK_ELEMS = 1 << 25
+
+
+def _batch_combine(parts: List[torch.Tensor], weights: List[Tuple[int, int]]) -> GF2:
+    """sum_j w_j * row_j over the base rows of `parts` (each (k_i, m)), in
+    order, with ext weights -> (m,) ext. Modular sums are exact, so the
+    blocking does not change the result."""
+    dev = parts[0].device
     wa = gfp.from_u64(np.asarray([w[0] for w in weights], dtype=np.uint64), dev)[:, None]
     wb = gfp.from_u64(np.asarray([w[1] for w in weights], dtype=np.uint64), dev)[:, None]
-    return GF2(gfp.sum_dim(gfp.mul(rows, wa), 0), gfp.sum_dim(gfp.mul(rows, wb), 0))
+    step = max(1, COMBINE_BLOCK_ELEMS // parts[0].shape[-1])
+    acc, j = None, 0
+    for part in parts:
+        for s in range(0, part.shape[0], step):
+            blk = part[s : s + step]
+            k = blk.shape[0]
+            t = GF2(gfp.sum_dim(gfp.mul(blk, wa[j : j + k]), 0),
+                    gfp.sum_dim(gfp.mul(blk, wb[j : j + k]), 0))
+            acc = t if acc is None else gf2x.add(acc, t)
+            j += k
+    assert j == len(weights)
+    return acc
 
 
 def _deep_composition(trace_lde, aux_lde, quotient_lde, openings: StarkOpenings, zeta, gzeta,
@@ -539,19 +557,18 @@ def _deep_composition(trace_lde, aux_lde, quotient_lde, openings: StarkOpenings,
         open0 += list(openings.aux_at_zeta)
         open1 += list(openings.aux_at_gzeta)
     open0 += list(openings.quotient_at_zeta)
-    b1_rows = torch.cat(parts1)
     open0 = [(int(v[0]), int(v[1])) for v in open0]
     open1 = [(int(v[0]), int(v[1])) for v in open1]
 
-    K = b1_rows.shape[0] + quotient_lde.shape[0]
-    L = b1_rows.shape[0]
+    L = sum(p.shape[0] for p in parts1)
+    K = L + quotient_lde.shape[0]
     a_pows = [(1, 0)]
     for _ in range(K + L - 1):
         a_pows.append(_ext_host_mul(a_pows[-1], fri_alpha))
 
-    b0 = _batch_combine(torch.cat([b1_rows, quotient_lde]), a_pows[:K])
+    b0 = _batch_combine(parts1 + [quotient_lde], a_pows[:K])
     y0 = _weighted_ext_sum(a_pows[:K], open0)
-    b1 = _batch_combine(b1_rows, a_pows[K:])
+    b1 = _batch_combine(parts1, a_pows[K:])
     y1 = _weighted_ext_sum(a_pows[K:], open1)
 
     x_ext = GF2(xs, torch.zeros_like(xs))

@@ -9,14 +9,17 @@ import numpy as np
 import pytest
 import torch
 
+from ethproof_tpu_torch.evm.transfer import prove_transfer, verify_transfer
 from ethproof_tpu_torch.fri.config import FriConfig, StarkConfig
 from ethproof_tpu_torch.gf import field as gfp
-from ethproof_tpu_torch.interop import proof_to_numpy
+from ethproof_tpu_torch.interop import proof_to_numpy, tx_proof_to_numpy
 from ethproof_tpu_torch.poly import base_dft as bd
 from ethproof_tpu_torch.poly import four_step
 from ethproof_tpu_torch.stark.prove import stark_prove
 from ethproof_tpu_torch.stark.verify import stark_verify
 from ethproof_tpu_torch.tables import memory as mem
+from ethproof_tpu_torch.tables.all import TableSizes
+from ethproof_tpu_torch.witness import synthetic
 
 pytestmark = pytest.mark.cuda
 
@@ -52,9 +55,25 @@ def _vals(shape, seed):
 def test_base_dft_kernel_equals_plain(card, log_n, inverse):
     # a ragged row count exercises the kernel's partial last block
     a = gfp.from_u64(_vals((1000 + log_n, 1 << log_n), log_n), card)
-    before = bd.LAUNCHES
-    got = bd.base_dft(a, log_n, inverse)
-    assert bd.LAUNCHES == before + 1
+    before = bd.LAUNCHES["base_dft"]
+    got = bd.base_dft(a, log_n, inverse, "i8")
+    assert bd.LAUNCHES["base_dft"] == before + 1
+    assert torch.equal(got, bd.base_dft_plain(a, log_n, inverse))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("log_n", range(1, 9))
+def test_base_dft_bf16_kernel_equals_plain(card, log_n, inverse):
+    """The bf16 tensor-core kernel against its plain version and the i8
+    plain version, on a ragged row count; the first row is the value with
+    the most 0xFF chunks."""
+    x = _vals((1000 + log_n, 1 << log_n), 50 + log_n)
+    x[0] = 0xFFFFFFFEFFFFFFFF
+    a = gfp.from_u64(x, card)
+    before = bd.LAUNCHES["base_dft_bf16"]
+    got = bd.base_dft(a, log_n, inverse, "bf16")
+    assert bd.LAUNCHES["base_dft_bf16"] == before + 1
+    assert torch.equal(got, bd.base_dft_bf16_plain(a, log_n, inverse))
     assert torch.equal(got, bd.base_dft_plain(a, log_n, inverse))
 
 
@@ -76,3 +95,21 @@ def test_small_memory_proof_on_card_equals_cpu_and_verifies(card):
     want = stark_prove(mem.MemoryStark(), trace, [], cfg, device="cpu")
     _assert_same(proof_to_numpy(got), proof_to_numpy(want))
     assert stark_verify(mem.MemoryStark(), got, cfg, device=card)
+
+
+@pytest.mark.parametrize("encoding", ["i8", "bf16"])
+def test_small_transfer_proof_on_card_equals_cpu(card, monkeypatch, encoding):
+    """The five-table transfer at the CPU tier's sizes: made on the card
+    under each encoding, every table proof equals the CPU plain path's."""
+    cfg = StarkConfig(num_challenges=2, fri_config=FriConfig(
+        rate_bits=2, cap_height=1, proof_of_work_bits=4, num_query_rounds=12,
+        arity_bits=2, final_poly_bits=2))
+    sizes = TableSizes(cpu=5, arithmetic=6, logic=4, bytepacking=9, memory=7, keccak=None)
+    gi = synthetic.small_transfer()
+    want = prove_transfer(gi, cfg, sizes, device="cpu")
+    monkeypatch.setattr(bd, "ENCODING", encoding)
+    before = bd.LAUNCHES[bd.KERNELS[encoding]]
+    got = prove_transfer(gi, cfg, sizes, device=card)
+    assert bd.LAUNCHES[bd.KERNELS[encoding]] > before
+    _assert_same(tx_proof_to_numpy(got), tx_proof_to_numpy(want))
+    assert verify_transfer(got, cfg, device=card)

@@ -1,13 +1,15 @@
-"""Port Poseidon and Merkle trees vs the JAX package (exact u64 equality)."""
+"""Port Poseidon, Merkle trees and Keccak-256 vs the JAX package (exact equality)."""
 
 import numpy as np
 import pytest
 import torch
 
 from ethproof_tpu.gf import field as jgf
+from ethproof_tpu.hash import keccak as jkeccak
 from ethproof_tpu.hash import merkle as jmerkle
 from ethproof_tpu.hash import poseidon as jps
 from ethproof_tpu_torch.gf import field as tgf
+from ethproof_tpu_torch.hash import keccak as tkeccak
 from ethproof_tpu_torch.hash import merkle as tmerkle
 from ethproof_tpu_torch.hash import poseidon as tps
 
@@ -67,3 +69,22 @@ def test_merkle_cap_and_paths_match_jax():
     bad = ttree.levels[0][:, idx].clone()
     bad[0, 1] ^= 1
     assert not bool(tmerkle.verify_path(bad, torch.from_numpy(idx), path, ttree.cap)[1])
+
+
+@pytest.mark.parametrize("leaf_block_elems", [7 * 8, 7 * 3, 1])
+def test_blocked_merkle_leaves_match_jax(monkeypatch, leaf_block_elems):
+    """Leaves digested in domain blocks (8 leaves, a ragged 3, one) give the
+    reference's tree."""
+    monkeypatch.setattr(tmerkle, "LEAF_BLOCK_ELEMS", leaf_block_elems)
+    rows = _vals((7, 64), 31)
+    jtree = jmerkle.build(jgf.from_u64(rows), 2)
+    ttree = tmerkle.build(_t(rows), 2)
+    for tl, jl in zip(ttree.levels, jtree.levels, strict=True):
+        np.testing.assert_array_equal(tgf.to_u64(tl), jgf.to_u64(jl))
+
+
+@pytest.mark.parametrize("length", [0, 1, 135, 136, 137, 300])
+def test_keccak256_matches_jax(length):
+    """Across the 136-byte rate boundary (one- and two-byte padding)."""
+    data = np.random.default_rng(length).bytes(length)
+    assert tkeccak.keccak256(data) == jkeccak.keccak256(data)

@@ -38,6 +38,29 @@ MODULES = [
     "ethproof_tpu_torch.tables.common",
     "ethproof_tpu_torch.tables.memory",
     "ethproof_tpu_torch.runtime.tracing",
+    "ethproof_tpu_torch.hash.keccak",
+    "ethproof_tpu_torch.trie",
+    "ethproof_tpu_torch.trie.rlp",
+    "ethproof_tpu_torch.trie.nibbles",
+    "ethproof_tpu_torch.trie.trie",
+    "ethproof_tpu_torch.witness",
+    "ethproof_tpu_torch.witness.types",
+    "ethproof_tpu_torch.witness.mpt",
+    "ethproof_tpu_torch.witness.synthetic",
+    "ethproof_tpu_torch.evm",
+    "ethproof_tpu_torch.evm.secp256k1",
+    "ethproof_tpu_torch.evm.tx",
+    "ethproof_tpu_torch.evm.gas",
+    "ethproof_tpu_torch.evm.kasm",
+    "ethproof_tpu_torch.evm.transfer",
+    "ethproof_tpu_torch.stark.multi",
+    "ethproof_tpu_torch.tables",
+    "ethproof_tpu_torch.tables.keccak_sponge",
+    "ethproof_tpu_torch.tables.logic",
+    "ethproof_tpu_torch.tables.arithmetic",
+    "ethproof_tpu_torch.tables.bytepacking",
+    "ethproof_tpu_torch.tables.cpu",
+    "ethproof_tpu_torch.tables.all",
 ]
 
 
@@ -104,3 +127,35 @@ def test_base_dft_rejects_what_the_kernel_does_not_take():
         base_dft(a, 2, False)
     with pytest.raises(TypeError):
         base_dft(a.to(torch.int32), 3, False)
+
+
+def test_prove_transfer_refuses_the_cpu_by_default():
+    _cuda_absent()
+    from ethproof_tpu_torch.evm.transfer import prove_transfer
+    from ethproof_tpu_torch.fri.config import StarkConfig
+    from ethproof_tpu_torch.tables.all import TableSizes
+    from ethproof_tpu_torch.witness import synthetic
+    
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        prove_transfer(synthetic.small_transfer(), StarkConfig(), TableSizes(keccak=None))
+
+
+def test_unknown_ntt_encoding_raises():
+    """ETHPROOF_NTT_ENCODING takes "i8" (the default) or "bf16", as the JAX
+    package's switch does; any other value fails when the module loads."""
+    code = "import ethproof_tpu_torch.poly.base_dft as b; print(b.ENCODING)"
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    for value, ok in (("bf16", True), ("i8", True), ("fp8", False)):
+        env["ETHPROOF_NTT_ENCODING"] = value
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert (out.returncode == 0) == ok, out.stderr
+        if ok:
+            assert out.stdout.strip() == value
+        else:
+            assert "fp8" in out.stderr
+    env.pop("ETHPROOF_NTT_ENCODING")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.strip() == "i8", out.stderr

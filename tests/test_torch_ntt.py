@@ -58,6 +58,47 @@ def test_base_dft_plain_matches_interpreted_pallas_kernel(monkeypatch, log_n, in
     np.testing.assert_array_equal(tgf.to_u64(tbd.base_dft_plain(_t(x), log_n, inverse)), want)
 
 
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("log_n", range(1, 9))
+def test_base_dft_bf16_plain_matches_xla_bf16(monkeypatch, log_n, inverse):
+    """The bf16 encoding's plain version against the JAX package's XLA bf16
+    path (`_field_matmul_dft` with `_ENCODING="bf16"`), on seeded values
+    and on the all-0xFF-chunk value that drives every dot to its largest
+    sum; the wrapper on a CPU tensor takes it under encoding="bf16"."""
+    monkeypatch.setattr(jmx, "_ENCODING", "bf16")
+    x = _vals((3, 1 << log_n), 500 + log_n)
+    x[0] = 0xFFFFFFFEFFFFFFFF
+    want = jgf.to_u64(jmx._field_matmul_dft(jgf.from_u64(x), log_n, inverse))
+    np.testing.assert_array_equal(tgf.to_u64(tbd.base_dft_bf16_plain(_t(x), log_n, inverse)), want)
+    np.testing.assert_array_equal(tgf.to_u64(tbd.base_dft(_t(x), log_n, inverse, "bf16")), want)
+    np.testing.assert_array_equal(tgf.to_u64(tbd.base_dft_plain(_t(x), log_n, inverse)), want)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("log_n", range(1, 9))
+def test_base_dft_bf16_plain_matches_interpreted_pallas_kernel(monkeypatch, log_n, inverse):
+    """... and against the Pallas `_dft_kernel` under the interpreter."""
+    monkeypatch.setattr(pallas_ntt, "_INTERPRET", True)
+    monkeypatch.setattr(jmx, "_ENCODING", "bf16")
+    n = 1 << log_n
+    x = _vals((max(8 * max(n, 128), 1024) // n, n), 600 + log_n)
+    a = jgf.from_u64(x)
+    assert pallas_ntt.supported(a.lo.size, log_n)
+    want = jgf.to_u64(pallas_ntt.dft_last_axis(a, log_n, inverse))
+    np.testing.assert_array_equal(tgf.to_u64(tbd.base_dft_bf16_plain(_t(x), log_n, inverse)), want)
+
+
+def test_encoding_switch_mirrors_the_jax_package():
+    """ENCODING defaults to the JAX package's default and names the
+    kernel each encoding launches; an unknown encoding raises."""
+    assert tbd.ENCODINGS == ("i8", "bf16")
+    assert tbd.KERNELS == {"i8": "base_dft", "bf16": "base_dft_bf16"}
+    assert set(tbd.LAUNCHES) == set(tbd.KERNELS.values())
+    x = _t(_vals((2, 8), 700))
+    with pytest.raises(ValueError, match="encoding"):
+        tbd.base_dft(x, 3, False, "fp8")
+
+
 @pytest.mark.parametrize("log_n", [3, 9])
 def test_ntt_and_intt_match_jax(log_n):
     x = _vals((2, 1 << log_n), 200 + log_n)

@@ -137,3 +137,23 @@ def test_device_ops_vector_api_matches_host_ext_ops():
         col = [(int(v), 0) for v in vals[:, j]]
         assert host.fold_vec(col, alpha) == (int(folded[j]), 0)
         assert host.pack_weighted(col, weights, 3) == [(int(v), 0) for v in packed[:, j]]
+
+
+def test_deep_batch_combine_is_blocking_invariant(monkeypatch):
+    """`_batch_combine` over several row blocks, in blocks of two rows and
+    in one piece, equals the host sum of w_j * row_j in GF(p^2)."""
+    from ethproof_tpu_torch.gf import field as tgf
+    from ethproof_tpu_torch.stark import prove as tprove
+
+    rng = np.random.default_rng(8)
+    m = 16
+    parts = [rng.integers(0, tgf.P, size=(k, m), dtype=np.uint64) for k in (3, 1, 4)]
+    weights = [tuple(int(v) for v in rng.integers(0, tgf.P, size=2, dtype=np.uint64))
+               for _ in range(8)]
+    rows = np.concatenate(parts)
+    want = [(sum(w[0] * int(r[x]) for w, r in zip(weights, rows)) % tgf.P,
+             sum(w[1] * int(r[x]) for w, r in zip(weights, rows)) % tgf.P) for x in range(m)]
+    for block in (1 << 25, 2 * m):
+        monkeypatch.setattr(tprove, "COMBINE_BLOCK_ELEMS", block)
+        got = tprove._batch_combine([tgf.from_u64(p, "cpu") for p in parts], weights)
+        assert list(zip(tgf.to_u64(got.a).tolist(), tgf.to_u64(got.b).tolist())) == want
