@@ -27,9 +27,12 @@ and the script exits non-zero; no phase's failure is caught):
              TableSizes(cpu=12, arithmetic=16, logic=12, bytepacking=9,
              memory=17, keccak=None) under `standard_fast_config`, with the
              i8 encoding (launch counts reset just before, read just after),
-             verified by the port's `verify_transfer`; then again with the
-             bf16 encoding, whose proof must equal the i8 one field for field;
-7. result  — one JSON line listing every kernel, the card's name and power
+             whose sha256 must equal the recorded TRANSFER_DIGEST, verified by
+             the port's `verify_transfer`; then again with the bf16 encoding,
+             whose proof must equal the i8 one field for field;
+7. census  — both kernels timed at every base-DFT shape that proof launched,
+             beside their bounds, the launch floor and a one-tile call;
+8. result  — one JSON line listing every kernel, the card's name and power
              limit, and the last line {"ok": true, "device": {...}}.
 
 `python3 chip_smoke.py --profile` instead builds the kernels and profiles
@@ -44,6 +47,7 @@ prints no result.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -62,8 +66,18 @@ TRACE_COLS = 28
 # (ethproof_tpu/runtime/prover_state.py:26-34), without the keccak pair
 TRANSFER_LOGS = dict(cpu=12, arithmetic=16, logic=12, bytepacking=9, memory=17)
 ARITH_COLS = 430  # the arithmetic table: the largest trace of the transfer
+CENSUS_PLAIN_MAX = 1 << 27  # elements up to which the census times the plain versions
 N_ACCOUNTS = 1000
-ADVERSARIAL = 0xFFFFFFFEFFFFFFFF  # canonical, seven of its eight bytes 0xFF
+# sha256 (`proof_digest`) of the full-width transfer's proof (`phase_transfer`'s
+# witness, sizes and config, i8), recorded on an NVIDIA H100 80GB HBM3 (700 W)
+# by a checkout of commit 5308af5, whose kernels predate their tensor-core
+# redesign (`base_dft` on 64-bit multiply-adds, `base_dft_bf16` converting
+# each dot): the kernels may change the time of a proof, never its bits
+TRANSFER_DIGEST = "ad37af5e6b2f2e55dbed414bc56488a97e838d6f3459cb91e8ec56b28e775f03"
+P = 0xFFFFFFFF00000001
+# all-zero data (i8 digits all -128), seven of eight bytes 0xFF (i8 digits
+# +127, bf16 dots at their largest sums), and p - 1
+ADVERSARIAL_VALUES = (0, 0xFFFFFFFEFFFFFFFF, P - 1)
 
 
 def card_line() -> str:
@@ -88,6 +102,34 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, elements: int) -> float:
+    """Mean device milliseconds of `fn()` replayed from a CUDA graph of
+    several calls (2 to 20, fewer for larger calls), after a warm-up: the
+    host's per-call launch cost, which sets the pace of a back-to-back run
+    of small calls, stays out."""
+    import torch
+
+    calls = min(20, max(2, (1 << 25) // elements))
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (3 * calls)
+    del graph
+    return ms
 
 
 def timed(fn):
@@ -167,9 +209,10 @@ def bound(elements: int, n: int, weight_bytes: int, ops_per_s: float):
 
 
 def phase_kernels(card: str) -> dict:
-    """base_dft against base_dft_plain for log_n 1..8, both directions, at
-    the Memory path's base-DFT call sizes (28 x 2^17 and 28 x 2^19
-    elements); base_dft_bf16 against the same base_dft_plain outputs."""
+    """base_dft against base_dft_plain and base_dft_i8_plain for log_n 1..8,
+    both directions, at the Memory path's base-DFT call sizes (28 x 2^17 and
+    28 x 2^19 elements); base_dft_bf16 against the same base_dft_plain
+    outputs."""
     from ethproof_tpu_torch.gf import field as gfp
     from ethproof_tpu_torch.poly import base_dft as bd
 
@@ -177,8 +220,9 @@ def phase_kernels(card: str) -> dict:
     warm = gfp.from_u64(rng.integers(0, gfp.P, size=(8, 2), dtype=np.uint64), "cuda")
     bd.base_dft_plain(warm, 1, False)  # first-use costs stay out of the timings
     report = None
-    print(f"[kernels] base_dft vs base_dft_plain on {card}; the JSON line reports the "
-          f"(28*2^{LOG_ROWS + 2} / 128, 128) forward call, the coset LDE's first base level")
+    print(f"[kernels] base_dft vs base_dft_plain and base_dft_i8_plain on {card}; the JSON "
+          f"line reports the (28*2^{LOG_ROWS + 2} / 128, 128) forward call, the coset LDE's "
+          "first base level")
     for total_log in (LOG_ROWS, LOG_ROWS + 2):
         total = TRACE_COLS << total_log
         vals = gfp.from_u64(rng.integers(0, gfp.P, size=total, dtype=np.uint64), "cuda")
@@ -188,7 +232,8 @@ def phase_kernels(card: str) -> dict:
             for inverse in (False, True):
                 got = bd.base_dft(a, log_n, inverse, "i8")
                 want, plain_ms = timed(lambda: bd.base_dft_plain(a, log_n, inverse))
-                err = max_abs_err(got, want)
+                err = max(max_abs_err(got, want),
+                          max_abs_err(got, bd.base_dft_i8_plain(a, log_n, inverse)))
                 if err != 0.0:
                     raise AssertionError(f"base_dft log_n={log_n} inverse={inverse} "
                                          f"elements={total}: kernel != plain ({err})")
@@ -200,7 +245,7 @@ def phase_kernels(card: str) -> dict:
                 bound_ms, bound_by = bound(total, n, 8 * n * n, INT8_OPS_PER_S)
                 print(f"[kernels] elements=28*2^{total_log} shape=({total // n}, {n}) "
                       f"inverse={inverse}: equal bits (base_dft_bf16 too); kernel {ms:.4f} ms, "
-                      f"plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms")
+                      f"plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by})")
                 if total_log == LOG_ROWS + 2 and log_n == 7 and not inverse:
                     report = {
                         "name": "base_dft",
@@ -219,38 +264,46 @@ def phase_kernels(card: str) -> dict:
     return report
 
 
-def phase_kernels_bf16(card: str) -> dict:
-    """base_dft_bf16 against base_dft_bf16_plain, bit for bit, for log_n
-    1..8 both ways: on the adversarial input (every element 0xFFFFFFFE_
-    FFFFFFFF, which drives every dot to its largest sum; also held against
-    base_dft_plain) and on seeded random inputs at the transfer's largest
-    base-DFT call sizes (the arithmetic table's commit: 430 x 2^16 elements
-    in the iNTT, 430 x 2^18 in the coset LDE)."""
+def phase_adversarial(card: str) -> None:
+    """Both kernels against base_dft_plain and their own plain versions, bit
+    for bit, for log_n 1..8 both ways, on inputs whose every element is 0
+    (every i8 data digit -128), 0xFFFFFFFE_FFFFFFFF (every bf16 chunk but one
+    0xFF, every dot at its largest sum; i8 digits +127) or p - 1."""
     import torch
 
     from ethproof_tpu_torch.gf import field as gfp
     from ethproof_tpu_torch.poly import base_dft as bd
 
-    def check(a, log_n, inverse, what, against_i8_plain=False):
-        got = bd.base_dft(a, log_n, inverse, "bf16")
-        want, plain_ms = timed(lambda: bd.base_dft_bf16_plain(a, log_n, inverse))
-        err = max_abs_err(got, want)
-        if against_i8_plain:
-            err = max(err, max_abs_err(got, bd.base_dft_plain(a, log_n, inverse)))
-        if err != 0.0:
-            raise AssertionError(f"base_dft_bf16 log_n={log_n} inverse={inverse} {what}: "
-                                 f"kernel != plain ({err})")
-        return err, plain_ms
+    plains = {"i8": bd.base_dft_i8_plain, "bf16": bd.base_dft_bf16_plain}
+    for value in ADVERSARIAL_VALUES:
+        flat = torch.full((ARITH_COLS << 8,), gfp.to_i64(value), dtype=torch.int64,
+                          device="cuda")
+        for log_n in range(1, 9):
+            a = flat.reshape(-1, 1 << log_n)
+            for inverse in (False, True):
+                want = bd.base_dft_plain(a, log_n, inverse)
+                for encoding, plain in plains.items():
+                    got = bd.base_dft(a, log_n, inverse, encoding)
+                    err = max(max_abs_err(got, want),
+                              max_abs_err(got, plain(a, log_n, inverse)))
+                    if err != 0.0:
+                        raise AssertionError(
+                            f"{bd.KERNELS[encoding]} log_n={log_n} inverse={inverse} "
+                            f"all-0x{value:X}: kernel != plain ({err})")
+    print(f"[kernels] base_dft and base_dft_bf16 on {card}: the inputs all "
+          + ", all ".join(f"0x{v:X}" for v in ADVERSARIAL_VALUES)
+          + " (430*2^8 elements each) equal base_dft_plain and their plain versions, "
+          "log_n 1..8 both ways")
 
-    adv = torch.full((ARITH_COLS << 8,), gfp.to_i64(ADVERSARIAL), dtype=torch.int64,
-                     device="cuda")
-    for log_n in range(1, 9):
-        for inverse in (False, True):
-            check(adv.reshape(-1, 1 << log_n), log_n, inverse, "adversarial", True)
-    print(f"[kernels] base_dft_bf16 on {card}: the all-0x{ADVERSARIAL:X} input "
-          f"(430*2^8 elements) equals base_dft_bf16_plain and base_dft_plain, log_n 1..8 "
-          "both ways")
-    del adv
+
+def phase_kernels_bf16(card: str) -> dict:
+    """base_dft_bf16 against base_dft_bf16_plain and base_dft against
+    base_dft_i8_plain, bit for bit, and the two kernels against each other,
+    for log_n 1..8 both ways on seeded random inputs at the transfer's
+    largest base-DFT call sizes (the arithmetic table's commit: 430 x 2^16
+    elements in the iNTT, 430 x 2^18 in the coset LDE)."""
+    from ethproof_tpu_torch.gf import field as gfp
+    from ethproof_tpu_torch.poly import base_dft as bd
 
     rng = np.random.default_rng(6)
     report = None
@@ -261,12 +314,23 @@ def phase_kernels_bf16(card: str) -> dict:
             n = 1 << log_n
             a = vals.reshape(total // n, n)
             for inverse in (False, True):
-                err, plain_ms = check(a, log_n, inverse, f"elements=430*2^{total_log}")
+                got = bd.base_dft(a, log_n, inverse, "bf16")
+                want, plain_ms = timed(lambda: bd.base_dft_bf16_plain(a, log_n, inverse))
+                err = max_abs_err(got, want)
+                got8 = bd.base_dft(a, log_n, inverse, "i8")
+                err8 = max(max_abs_err(got8, bd.base_dft_i8_plain(a, log_n, inverse)),
+                           max_abs_err(got8, got))
+                if max(err, err8) != 0.0:
+                    raise AssertionError(
+                        f"elements=430*2^{total_log} log_n={log_n} inverse={inverse}: "
+                        f"base_dft_bf16 != its plain version ({err}) or base_dft != "
+                        f"base_dft_i8_plain or base_dft_bf16 ({err8})")
+                del got8
                 ms = cuda_ms(lambda: bd.base_dft(a, log_n, inverse, "bf16"), 5)
                 bound_ms, bound_by = bound(total, n, 16 * n * n, BF16_OPS_PER_S)
                 print(f"[kernels] base_dft_bf16 elements=430*2^{total_log} shape=({total // n}, "
-                      f"{n}) inverse={inverse}: equal bits; kernel {ms:.4f} ms, plain "
-                      f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+                      f"{n}) inverse={inverse}: equal bits (and base_dft); kernel {ms:.4f} ms, "
+                      f"plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by})")
                 if log_n == report_log_n and not inverse:
                     report = {
                         "name": "base_dft_bf16",
@@ -343,6 +407,7 @@ def reset_launches() -> None:
 
     for name in bd.LAUNCHES:
         bd.LAUNCHES[name] = 0
+    bd.CENSUS.clear()
 
 
 def same(x, y) -> bool:
@@ -433,9 +498,93 @@ def phase_small_transfer() -> None:
     bd.ENCODING = "i8"
 
 
-def phase_transfer(card: str) -> dict:
-    """The slice's main path at full width, once per encoding -> launches of
-    each kernel on its own encoding's run."""
+def proof_digest(proofs) -> str:
+    """sha256 of a `multi_proof_to_numpy` list, field by field: dict keys in
+    order, list lengths, each array's dtype, shape and bytes, each int."""
+    digest = hashlib.sha256()
+
+    def walk(v):
+        if isinstance(v, dict):
+            digest.update(b"{%d" % len(v))
+            for k in sorted(v):
+                digest.update(k.encode())
+                walk(v[k])
+        elif isinstance(v, list):
+            digest.update(b"[%d" % len(v))
+            for u in v:
+                walk(u)
+        elif isinstance(v, np.ndarray):
+            digest.update(f"{v.dtype.str}{v.shape}".encode())
+            digest.update(np.ascontiguousarray(v).tobytes())
+        else:
+            digest.update(repr(v).encode())
+
+    walk(proofs)
+    return digest.hexdigest()
+
+
+def phase_census(card: str, census: dict) -> None:
+    """Each kernel timed (`graph_ms`: CUDA events around CUDA-graph replays)
+    at every base-DFT shape the full-width transfer launched: `census` is
+    base_dft.CENSUS of the i8 proof, (kernel, rows, n, inverse) -> launches;
+    the bf16 proof launches the same shapes. Prints per shape and per proof
+    the kernel ms, the bound, what binds, launches x (ms - bound) and the
+    plain version's ms (one call, up to CENSUS_PLAIN_MAX elements: above it
+    its float64 digit planes and int64 buckets outgrow the card). What the
+    bound leaves out is timed the same way: the launch floor (a one-element
+    `add_`) and, for each n, a 16-row call (one block of one row tile, so
+    its time is the latency of one tile's read, planes, MMAs and epilogue);
+    each shape's time is also given against that call's."""
+    import torch
+
+    from ethproof_tpu_torch.poly import base_dft as bd
+
+    plains = {"i8": bd.base_dft_i8_plain, "bf16": bd.base_dft_bf16_plain}
+    shapes = sorted((rows, n, inverse, count)
+                    for (name, rows, n, inverse), count in census.items() if name == "base_dft")
+    tiny = torch.zeros(1, dtype=torch.int64, device="cuda")
+    print(f"[census] launch floor on {card}: {graph_ms(lambda: tiny.add_(1), 1):.4f} ms per "
+          "one-element add_")
+    one_tile = {}
+    for n in sorted({s[1] for s in shapes}):
+        t = torch.randint(0, 1 << 62, (16, n), dtype=torch.int64, device="cuda")
+        for encoding in ("i8", "bf16"):
+            one_tile[encoding, n] = graph_ms(
+                lambda: bd.base_dft(t, n.bit_length() - 1, False, encoding), 16 * n)
+        print(f"[census] one 16-row call at n = {n}: base_dft {one_tile['i8', n]:.4f} ms, "
+              f"base_dft_bf16 {one_tile['bf16', n]:.4f} ms")
+    per_proof = {}
+    print(f"[census] {len(shapes)} shapes, {sum(s[3] for s in shapes)} launches per transfer "
+          f"proof, on {card}")
+    for rows, n, inverse, count in shapes:
+        log_n = n.bit_length() - 1
+        a = torch.randint(0, 1 << 62, (rows, n), dtype=torch.int64, device="cuda")
+        for encoding, ops, wbytes in (("i8", INT8_OPS_PER_S, 8), ("bf16", BF16_OPS_PER_S, 16)):
+            name = bd.KERNELS[encoding]
+            ms = graph_ms(lambda: bd.base_dft(a, log_n, inverse, encoding), rows * n)
+            bound_ms, bound_by = bound(rows * n, n, wbytes * n * n, ops)
+            tot = per_proof.setdefault(name, {"ms": 0.0, "bound_ms": 0.0})
+            tot["ms"] += count * ms
+            tot["bound_ms"] += count * bound_ms
+            if rows * n <= CENSUS_PLAIN_MAX:
+                plain_ms = f"{timed(lambda: plains[encoding](a, log_n, inverse))[1]:.2f} ms"
+            else:
+                plain_ms = "not measured"
+            print(f"[census] {name} ({rows}, {n}) inverse={inverse} x{count}: kernel {ms:.4f} "
+                  f"ms, bound {bound_ms:.4f} ms ({bound_by}), {ms / bound_ms:.2f}x bound, "
+                  f"{ms / one_tile[encoding, n]:.2f}x one 16-row call, launches x (ms - bound) "
+                  f"{count * (ms - bound_ms):.3f} ms, plain {plain_ms}")
+        del a
+    for name, tot in per_proof.items():
+        print(f"[census] {name} per transfer proof: {tot['ms']:.3f} ms of kernel time, bound "
+              f"{tot['bound_ms']:.3f} ms, launches x (ms - bound) "
+              f"{tot['ms'] - tot['bound_ms']:.3f} ms")
+
+
+def phase_transfer(card: str):
+    """The slice's main path at full width, once per encoding -> (launches
+    of each kernel on its own encoding's run, the i8 run's base-DFT census).
+    The i8 proof must have the recorded digest, TRANSFER_DIGEST."""
     import torch
 
     from ethproof_tpu_torch.evm.transfer import prove_transfer, verify_transfer
@@ -467,6 +616,8 @@ def phase_transfer(card: str) -> dict:
         if run[kernel] <= 0:
             raise AssertionError(f"the {encoding} transfer proof launched no {kernel} kernel")
         launches[kernel] = run[kernel]
+        if encoding == "i8":
+            census = dict(bd.CENSUS)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         print(f"[transfer] {encoding}: prove_transfer {TRANSFER_LOGS} on {card}: {wall:.3f} s, "
               f"launches {run}, peak device memory {peak_gb:.2f} GB")
@@ -476,6 +627,11 @@ def phase_transfer(card: str) -> dict:
                 f" sum {sum(phases.values()):.3f} s")
         proofs[encoding] = multi_proof_to_numpy(proof.multi)
         if encoding == "i8":
+            digest = proof_digest(proofs["i8"])
+            if digest != TRANSFER_DIGEST:
+                raise AssertionError(f"the i8 transfer proof's digest {digest} differs from the "
+                                     f"recorded proof's ({TRANSFER_DIGEST})")
+            print(f"[transfer] the i8 proof equals the recorded proof (sha256 {digest})")
             t0 = time.perf_counter()
             ok = verify_transfer(proof, config, device="cuda")
             print(f"[transfer] port verify_transfer: {ok} in {time.perf_counter() - t0:.2f} s")
@@ -488,7 +644,7 @@ def phase_transfer(card: str) -> dict:
     print(f"[transfer] the bf16 proof equals the i8 proof field for field in all "
           f"{len(proofs['i8'])} tables")
     bd.ENCODING = "i8"
-    return launches
+    return launches, census
 
 
 def phase_profile(card: str) -> None:
@@ -639,13 +795,18 @@ def main() -> int:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]} (--profile or --memory)",
               file=sys.stderr)
         return 2
+    # the plain versions' digit matmuls run in float64, exact whatever the
+    # float32 setting: every comparison below runs with TF32 allowed
+    torch.backends.cuda.matmul.allow_tf32 = True
     phase_build()
     reports = [phase_kernels(card), phase_kernels_bf16(card)]
+    phase_adversarial(card)
     phase_four_step()
     phase_small_proof()
     phase_slice(card)
     phase_small_transfer()
-    launches = phase_transfer(card)
+    launches, census = phase_transfer(card)
+    phase_census(card, census)
     for report in reports:
         report["launches"] = launches[report["name"]]
     print(json.dumps({"kernels": reports}))

@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` compiles with `nvcc` for `sm_90a` into a shared
 library with a plain C interface, loaded with `ctypes`. The library goes
 into `ethproof_tpu_torch/build/` (listed in .gitignore) under a name keyed
-by the source's content hash, so an edited source rebuilds and an unchanged
-one loads at once. Nothing builds at import time: a kernel builds on its
+by the content hash of the source and of every local header it includes
+(`csrc/goldilocks.cuh`), so an edited source or header rebuilds and an
+unchanged one loads at once. Nothing builds at import time: a kernel builds on its
 first launch, or all at once through `build_all` (one `nvcc` per source,
 started together).
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -44,9 +46,25 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: List[Path]) -> List[Path]:
+    """`path` and every local header it includes, transitively, in order."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    for inc in _LOCAL_INCLUDE.findall(path.read_bytes()):
+        _sources(path.parent / inc.decode(), seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    tag = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{tag}.so"
+    """The library's path, keyed by the source and the headers it includes."""
+    digest = hashlib.sha256()
+    for src in _sources(CSRC / f"{name}.cu", []):
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> Tuple[subprocess.Popen, Path, Path]:

@@ -50,31 +50,66 @@ def _vals(shape, seed):
     return np.random.default_rng(seed).integers(0, gfp.P, size=shape, dtype=np.uint64)
 
 
+# every i8 data digit -128; seven of eight bytes 0xFF (i8 digits +127, the
+# largest bf16 chunk dots); p - 1
+ADVERSARIAL = (0, 0xFFFFFFFEFFFFFFFF, gfp.P - 1)
+
+
+def _vals_adv(shape, seed):
+    x = _vals(shape, seed)
+    x[: len(ADVERSARIAL)] = np.asarray(ADVERSARIAL, dtype=np.uint64)[:, None]
+    return x
+
+
+def _check_kernel(card, encoding, log_n, inverse, seed):
+    """The encoding's kernel against base_dft_plain and its own plain
+    version: on a ragged row count (the partial last row tile) whose first
+    rows are the adversarial values, and on 37 rows that are all one
+    adversarial value (each bf16 chain at its largest sum, each i8 digit at
+    an end of its range), the plain version with TF32 allowed (its digit
+    matmuls run in float64); one launch counted per call, and the launcher
+    refuses a misaligned tensor (a slice a[1:] of a flat tensor, reshaped)
+    without launching."""
+    name = bd.KERNELS[encoding]
+    plain = bd.base_dft_i8_plain if encoding == "i8" else bd.base_dft_bf16_plain
+    n = 1 << log_n
+    a = gfp.from_u64(_vals_adv((1000 + log_n, n), seed), card)
+    before = bd.LAUNCHES[name]
+    census = bd.CENSUS[(name, 1000 + log_n, n, inverse)]
+    got = bd.base_dft(a, log_n, inverse, encoding)
+    assert bd.LAUNCHES[name] == before + 1
+    assert bd.CENSUS[(name, 1000 + log_n, n, inverse)] == census + 1
+    assert torch.equal(got, bd.base_dft_plain(a, log_n, inverse))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        assert torch.equal(got, plain(a, log_n, inverse))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for value in ADVERSARIAL:
+        c = torch.full((37, n), gfp.to_i64(value), dtype=torch.int64, device=card)
+        assert torch.equal(bd.base_dft(c, log_n, inverse, encoding),
+                           bd.base_dft_plain(c, log_n, inverse)), value
+    misaligned = a.flatten()[1 : 1 + 64 * n].view(64, n)
+    assert misaligned.is_contiguous() and misaligned.data_ptr() % 16 == 8
+    before = bd.LAUNCHES[name]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        bd.base_dft(misaligned, log_n, inverse, encoding)
+    assert bd.LAUNCHES[name] == before
+
+
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("log_n", range(1, 9))
 def test_base_dft_kernel_equals_plain(card, log_n, inverse):
-    # a ragged row count exercises the kernel's partial last block
-    a = gfp.from_u64(_vals((1000 + log_n, 1 << log_n), log_n), card)
-    before = bd.LAUNCHES["base_dft"]
-    got = bd.base_dft(a, log_n, inverse, "i8")
-    assert bd.LAUNCHES["base_dft"] == before + 1
-    assert torch.equal(got, bd.base_dft_plain(a, log_n, inverse))
+    """The int8 tensor-core kernel (see _check_kernel)."""
+    _check_kernel(card, "i8", log_n, inverse, log_n)
 
 
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("log_n", range(1, 9))
 def test_base_dft_bf16_kernel_equals_plain(card, log_n, inverse):
-    """The bf16 tensor-core kernel against its plain version and the i8
-    plain version, on a ragged row count; the first row is the value with
-    the most 0xFF chunks."""
-    x = _vals((1000 + log_n, 1 << log_n), 50 + log_n)
-    x[0] = 0xFFFFFFFEFFFFFFFF
-    a = gfp.from_u64(x, card)
-    before = bd.LAUNCHES["base_dft_bf16"]
-    got = bd.base_dft(a, log_n, inverse, "bf16")
-    assert bd.LAUNCHES["base_dft_bf16"] == before + 1
-    assert torch.equal(got, bd.base_dft_bf16_plain(a, log_n, inverse))
-    assert torch.equal(got, bd.base_dft_plain(a, log_n, inverse))
+    """The bf16 tensor-core kernel (see _check_kernel)."""
+    _check_kernel(card, "bf16", log_n, inverse, 50 + log_n)
 
 
 def test_four_step_with_kernel_equals_cpu(card):

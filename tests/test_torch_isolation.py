@@ -127,6 +127,21 @@ def test_base_dft_rejects_what_the_kernel_does_not_take():
         base_dft(a, 2, False)
     with pytest.raises(TypeError):
         base_dft(a.to(torch.int32), 3, False)
+    # the kernels read 16 bytes a lane: the launcher refuses a contiguous
+    # tensor whose data does not start on a 16-byte boundary (a slice a[1:]
+    # of a flat tensor, reshaped), and a non-contiguous one, before it
+    # builds or loads anything
+    from ethproof_tpu_torch.poly import base_dft as bd
+
+    misaligned = torch.zeros(1 + 4 * 8, dtype=torch.int64)[1:].view(4, 8)
+    assert misaligned.is_contiguous() and misaligned.data_ptr() % 16 == 8
+    before = dict(bd.LAUNCHES)
+    for encoding in bd.ENCODINGS:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            bd._launch(misaligned, 3, False, encoding)
+        with pytest.raises(ValueError, match="contiguous"):
+            bd._launch(torch.zeros((8, 4), dtype=torch.int64).T, 3, False, encoding)
+    assert bd.LAUNCHES == before
 
 
 def test_prove_transfer_refuses_the_cpu_by_default():
