@@ -19,27 +19,38 @@ and the script exits non-zero; no phase's failure is caught):
              2^17-row MemoryStark proof under `standard_fast_config` (launch
              counts reset just before it, read just after), verified by the
              port's host verifier;
-5. small transfer — a five-table transfer proof at the CPU tier's sizes,
-             made on the card under each NTT encoding, must equal the CPU
-             plain path's proof field for field, table by table;
-6. transfer — the slice's main path at full width: an EIP-1559 transfer
-             over a seeded 1,000-account state trie, `prove_transfer` with
-             TableSizes(cpu=12, arithmetic=16, logic=12, bytepacking=9,
+5. small transfer — the five-table transfer proof and the seven-table one
+             (`SIZES7` of tests/test_transfer_e2e.py: the Keccak pair on, the
+             binding dropped by the cpu < 2^11 pre-guard) at the CPU tier's
+             sizes, made on the card under each NTT encoding, must equal the
+             CPU plain path's proof field for field, table by table;
+6. transfer — the five-table path of slice 2 at full width: an EIP-1559
+             transfer over a seeded 1,000-account state trie, `prove_transfer`
+             with TableSizes(cpu=12, arithmetic=16, logic=12, bytepacking=9,
              memory=17, keccak=None) under `standard_fast_config`, with the
              i8 encoding (launch counts reset just before, read just after),
-             whose sha256 must equal the recorded TRANSFER_DIGEST, verified by
-             the port's `verify_transfer`; then again with the bf16 encoding,
-             whose proof must equal the i8 one field for field;
-7. census  — both kernels timed at every base-DFT shape that proof launched,
-             beside their bounds, the launch floor and a one-tile call;
-8. result  — one JSON line listing every kernel, the card's name and power
+             whose sha256 must equal the recorded TRANSFER_DIGEST; then again
+             with the bf16 encoding, whose proof must equal the i8 one field
+             for field;
+7. transfer7 — the main path: the same witness proved by
+             `prove_transfer(gi, config, CircuitConfig(), binding="require")`,
+             the seven-table transfer with the in-circuit state-root binding
+             at the sizes the reference fits for it, i8 (launch counts reset
+             just before, read just after): seven table proofs, the
+             production binding shape, the fitted sizes, the recorded digest
+             TRANSFER7_DIGEST, the port's `verify_transfer`, and a flipped
+             post state root rejected by `verify_all_tables` alone;
+8. census  — both kernels timed at every base-DFT shape the main path's
+             proof launched, beside their bounds, the launch floor and a
+             one-tile call;
+9. result  — one JSON line listing every kernel, the card's name and power
              limit, and the last line {"ok": true, "device": {...}}.
 
 `python3 chip_smoke.py --profile` instead builds the kernels and profiles
 one 2^17-row Memory proof (device kernels by name, idle share, layer
-times); `python3 chip_smoke.py --memory` proves the full-width transfer four
-times, with the Merkle-leaf and DEEP blocking off, on, on, off, and prints
-each phase's seconds and peak device memory. Neither prints a result line.
+times); `python3 chip_smoke.py --memory` proves the main path once and
+prints each phase's seconds and peak device memory. Neither prints a result
+line.
 
 Without a CUDA card, or run outside the repository, it exits non-zero and
 prints no result.
@@ -49,9 +60,11 @@ from __future__ import annotations
 
 import hashlib
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
@@ -67,6 +80,7 @@ TRACE_COLS = 28
 TRANSFER_LOGS = dict(cpu=12, arithmetic=16, logic=12, bytepacking=9, memory=17)
 ARITH_COLS = 430  # the arithmetic table: the largest trace of the transfer
 CENSUS_PLAIN_MAX = 1 << 27  # elements up to which the census times the plain versions
+CENSUS_CHECK_ELEMS = 1 << 24  # elements per shape the census checks against the plain versions
 N_ACCOUNTS = 1000
 # sha256 (`proof_digest`) of the full-width transfer's proof (`phase_transfer`'s
 # witness, sizes and config, i8), recorded on an NVIDIA H100 80GB HBM3 (700 W)
@@ -74,6 +88,14 @@ N_ACCOUNTS = 1000
 # redesign (`base_dft` on 64-bit multiply-adds, `base_dft_bf16` converting
 # each dot): the kernels may change the time of a proof, never its bits
 TRANSFER_DIGEST = "ad37af5e6b2f2e55dbed414bc56488a97e838d6f3459cb91e8ec56b28e775f03"
+# the seven-table transfer's sizes as the reference's TableSizes.fit gives
+# them for `phase_transfer7`'s witness under the default CircuitConfig ranges
+TRANSFER7_LOGS = dict(cpu=16, arithmetic=16, logic=12, bytepacking=9, memory=17, keccak=14,
+                      keccak_sponge=9)
+# sha256 (`proof_digest`) of that proof (i8), recorded on an NVIDIA H100 80GB
+# HBM3 (700 W) by the commit that added it: it pins the bits for later kernel
+# work; it is not a reference check
+TRANSFER7_DIGEST = "91aa11c62fc5069a4337ca142abe4a07a56b49cdbc77ff48c768af686318462f"
 P = 0xFFFFFFFF00000001
 # all-zero data (i8 digits all -128), seven of eight bytes 0xFF (i8 digits
 # +127, bf16 dots at their largest sums), and p - 1
@@ -470,32 +492,61 @@ def small_transfer_config():
         arity_bits=2, final_poly_bits=2))
 
 
-def phase_small_transfer() -> None:
-    """The card's five-table transfer proof at the CPU tier's sizes, under
-    each encoding, equals the CPU plain path's, table by table."""
+def small_transfer_sizes(keccak):
+    from ethproof_tpu_torch.tables.all import TableSizes
+
+    return TableSizes(cpu=5, arithmetic=6, logic=4, bytepacking=9, memory=7, keccak=keccak)
+
+
+def cpu_small_transfers():
+    """The CPU plain path's five- and seven-table transfer proofs at the CPU
+    tier's sizes -> ({keccak size: interop proofs}, seconds). Run in a
+    worker process while the card works on the earlier phases."""
+    import torch
+
+    from ethproof_tpu_torch.evm.transfer import prove_transfer
+    from ethproof_tpu_torch.interop import multi_proof_to_numpy
+    from ethproof_tpu_torch.witness import synthetic
+
+    torch.set_num_threads(4)
+    t0 = time.perf_counter()
+    gi, config = synthetic.small_transfer(), small_transfer_config()
+    proofs = {keccak: multi_proof_to_numpy(
+        prove_transfer(gi, config, small_transfer_sizes(keccak), device="cpu").multi)
+        for keccak in (None, 5)}
+    return proofs, time.perf_counter() - t0
+
+
+def phase_small_transfer(on_cpu_future) -> None:
+    """The card's five- and seven-table transfer proofs at the CPU tier's
+    sizes, under each encoding, equal the CPU plain path's (from
+    `cpu_small_transfers`), table by table."""
     from ethproof_tpu_torch.evm.transfer import prove_transfer
     from ethproof_tpu_torch.interop import multi_proof_to_numpy
     from ethproof_tpu_torch.poly import base_dft as bd
-    from ethproof_tpu_torch.tables.all import TableSizes
     from ethproof_tpu_torch.witness import synthetic
 
     gi, config = synthetic.small_transfer(), small_transfer_config()
-    sizes = TableSizes(cpu=5, arithmetic=6, logic=4, bytepacking=9, memory=7, keccak=None)
-    t0 = time.perf_counter()
-    on_cpu = multi_proof_to_numpy(prove_transfer(gi, config, sizes, device="cpu").multi)
-    cpu_s = time.perf_counter() - t0
-    for encoding in ("i8", "bf16"):
-        bd.ENCODING = encoding
-        t0 = time.perf_counter()
-        on_card = multi_proof_to_numpy(prove_transfer(gi, config, sizes, device="cuda").multi)
-        card_s = time.perf_counter() - t0
-        for t, (x, y) in enumerate(zip(on_card, on_cpu)):
-            if not same(x, y):
-                raise AssertionError(f"small transfer, {encoding}: table {t}'s proof on the "
-                                     "card differs from the CPU's")
-        print(f"[small transfer] {encoding}: card ({card_s:.2f} s) and CPU plain path "
-              f"({cpu_s:.2f} s) agree field for field in all {len(on_cpu)} tables")
-    bd.ENCODING = "i8"
+    on_cpu = cpu_s = None
+    for keccak in (None, 5):
+        sizes = small_transfer_sizes(keccak)
+        for encoding in ("i8", "bf16"):
+            bd.ENCODING = encoding
+            t0 = time.perf_counter()
+            on_card = multi_proof_to_numpy(
+                prove_transfer(gi, config, sizes, device="cuda").multi)
+            card_s = time.perf_counter() - t0
+            if on_cpu is None:
+                on_cpu, cpu_s = on_cpu_future.result()
+            for t, (x, y) in enumerate(zip(on_card, on_cpu[keccak])):
+                if not same(x, y):
+                    raise AssertionError(f"small transfer, {encoding}: table {t}'s proof on "
+                                         "the card differs from the CPU's")
+            print(f"[small transfer] {len(on_card)} tables, {encoding}: card ({card_s:.2f} s) "
+                  f"and CPU plain path agree field for field in every table")
+        bd.ENCODING = "i8"
+    print(f"[small transfer] the CPU plain path's two proofs took {cpu_s:.2f} s in a worker "
+          "process, beside the card's phases")
 
 
 def proof_digest(proofs) -> str:
@@ -524,10 +575,13 @@ def proof_digest(proofs) -> str:
 
 
 def phase_census(card: str, census: dict) -> None:
-    """Each kernel timed (`graph_ms`: CUDA events around CUDA-graph replays)
-    at every base-DFT shape the full-width transfer launched: `census` is
-    base_dft.CENSUS of the i8 proof, (kernel, rows, n, inverse) -> launches;
-    the bf16 proof launches the same shapes. Prints per shape and per proof
+    """Each kernel held bit for bit against its plain version (on the first
+    and last rows, CENSUS_CHECK_ELEMS elements in all, or every row of a
+    smaller call) and against the other kernel (every row), and timed
+    (`graph_ms`: CUDA events around CUDA-graph replays) at every base-DFT
+    shape the main path launched: `census` is base_dft.CENSUS of its i8
+    proof, (kernel, rows, n, inverse) -> launches; a bf16 proof launches the
+    same shapes (the four-step split depends on n alone). Prints per shape and per proof
     the kernel ms, the bound, what binds, launches x (ms - bound) and the
     plain version's ms (one call, up to CENSUS_PLAIN_MAX elements: above it
     its float64 digit planes and int64 buckets outgrow the card). What the
@@ -554,13 +608,25 @@ def phase_census(card: str, census: dict) -> None:
         print(f"[census] one 16-row call at n = {n}: base_dft {one_tile['i8', n]:.4f} ms, "
               f"base_dft_bf16 {one_tile['bf16', n]:.4f} ms")
     per_proof = {}
-    print(f"[census] {len(shapes)} shapes, {sum(s[3] for s in shapes)} launches per transfer "
-          f"proof, on {card}")
+    print(f"[census] {len(shapes)} shapes, {sum(s[3] for s in shapes)} launches per "
+          f"seven-table transfer proof, on {card}")
     for rows, n, inverse, count in shapes:
         log_n = n.bit_length() - 1
         a = torch.randint(0, 1 << 62, (rows, n), dtype=torch.int64, device="cuda")
+        # the plain versions check the first and the last CENSUS_CHECK_ELEMS / 2
+        # elements' rows (all rows of a smaller call); the kernels, each
+        # other in every row
+        half = max(1, CENSUS_CHECK_ELEMS // (2 * n))
+        check_rows = ([slice(0, rows)] if rows <= 2 * half
+                      else [slice(0, half), slice(rows - half, rows)])
+        got = {}
         for encoding, ops, wbytes in (("i8", INT8_OPS_PER_S, 8), ("bf16", BF16_OPS_PER_S, 16)):
             name = bd.KERNELS[encoding]
+            got[encoding] = bd.base_dft(a, log_n, inverse, encoding)
+            for r in check_rows:
+                if not torch.equal(got[encoding][r], plains[encoding](a[r], log_n, inverse)):
+                    raise AssertionError(f"{name} ({rows}, {n}) inverse={inverse}: kernel != "
+                                         f"its plain version in rows {r}")
             ms = graph_ms(lambda: bd.base_dft(a, log_n, inverse, encoding), rows * n)
             bound_ms, bound_by = bound(rows * n, n, wbytes * n * n, ops)
             tot = per_proof.setdefault(name, {"ms": 0.0, "bound_ms": 0.0})
@@ -570,21 +636,25 @@ def phase_census(card: str, census: dict) -> None:
                 plain_ms = f"{timed(lambda: plains[encoding](a, log_n, inverse))[1]:.2f} ms"
             else:
                 plain_ms = "not measured"
-            print(f"[census] {name} ({rows}, {n}) inverse={inverse} x{count}: kernel {ms:.4f} "
+            print(f"[census] {name} ({rows}, {n}) inverse={inverse} x{count}: equal bits to its "
+                  f"plain version and the other kernel; kernel {ms:.4f} "
                   f"ms, bound {bound_ms:.4f} ms ({bound_by}), {ms / bound_ms:.2f}x bound, "
                   f"{ms / one_tile[encoding, n]:.2f}x one 16-row call, launches x (ms - bound) "
                   f"{count * (ms - bound_ms):.3f} ms, plain {plain_ms}")
-        del a
+        if not torch.equal(got["i8"], got["bf16"]):
+            raise AssertionError(f"({rows}, {n}) inverse={inverse}: base_dft != base_dft_bf16")
+        del a, got
     for name, tot in per_proof.items():
-        print(f"[census] {name} per transfer proof: {tot['ms']:.3f} ms of kernel time, bound "
+        print(f"[census] {name} per seven-table transfer proof: {tot['ms']:.3f} ms of kernel "
+              f"time, bound "
               f"{tot['bound_ms']:.3f} ms, launches x (ms - bound) "
               f"{tot['ms'] - tot['bound_ms']:.3f} ms")
 
 
-def phase_transfer(card: str):
-    """The slice's main path at full width, once per encoding -> (launches
-    of each kernel on its own encoding's run, the i8 run's base-DFT census).
-    The i8 proof must have the recorded digest, TRANSFER_DIGEST."""
+def phase_transfer(card: str) -> dict:
+    """The five-table path at full width, once per encoding -> the launches
+    of each kernel on its own encoding's run. The i8 proof must have the
+    recorded digest, TRANSFER_DIGEST; the bf16 proof must equal it."""
     import torch
 
     from ethproof_tpu_torch.evm.transfer import prove_transfer, verify_transfer
@@ -616,15 +686,10 @@ def phase_transfer(card: str):
         if run[kernel] <= 0:
             raise AssertionError(f"the {encoding} transfer proof launched no {kernel} kernel")
         launches[kernel] = run[kernel]
-        if encoding == "i8":
-            census = dict(bd.CENSUS)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         print(f"[transfer] {encoding}: prove_transfer {TRANSFER_LOGS} on {card}: {wall:.3f} s, "
               f"launches {run}, peak device memory {peak_gb:.2f} GB")
-        for table, phases in times.items():
-            print(f"[transfer] {encoding}: {table} " + json.dumps(
-                {k: round(v, 4) for k, v in phases.items()}) +
-                f" sum {sum(phases.values()):.3f} s")
+        print_phases("[transfer] " + encoding, times)
         proofs[encoding] = multi_proof_to_numpy(proof.multi)
         if encoding == "i8":
             digest = proof_digest(proofs["i8"])
@@ -644,6 +709,109 @@ def phase_transfer(card: str):
     print(f"[transfer] the bf16 proof equals the i8 proof field for field in all "
           f"{len(proofs['i8'])} tables")
     bd.ENCODING = "i8"
+    return launches
+
+
+def print_phases(tag: str, times: dict) -> None:
+    """Each table's phase seconds (and peak GB, where measured) and their sum."""
+    for table, phases in times.items():
+        secs = sum(v for k, v in phases.items() if not k.startswith("GB_"))
+        print(f"{tag} {table} " + json.dumps({k: round(v, 4) for k, v in phases.items()})
+              + f" sum {secs:.3f} s")
+
+
+def transfer7_inputs():
+    """(witness, config) of the main path, and the host seconds of the witness."""
+    from ethproof_tpu_torch.fri.config import standard_fast_config
+    from ethproof_tpu_torch.witness import synthetic
+
+    t0 = time.perf_counter()
+    gi = synthetic.seeded_transfer(N_ACCOUNTS, seed=5)
+    return gi, standard_fast_config(), time.perf_counter() - t0
+
+
+def prove_transfer7(gi, config, card: str, tag: str):
+    """One main-path proof on the card, i8, launch counts reset just before
+    and read just after -> (proof, launches, census)."""
+    import torch
+
+    from ethproof_tpu_torch.evm.binding import PRODUCTION_SHAPE
+    from ethproof_tpu_torch.evm.transfer import prove_transfer
+    from ethproof_tpu_torch.poly import base_dft as bd
+    from ethproof_tpu_torch.runtime.prover_state import CircuitConfig
+
+    bd.ENCODING = "i8"
+    times: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    proof = prove_transfer(gi, config, CircuitConfig(), binding="require", device="cuda",
+                           phase_times=times)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, census = dict(bd.LAUNCHES), dict(bd.CENSUS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    logs = dict(zip(TRANSFER7_LOGS, (p.degree_bits for p in proof.multi.proofs)))
+    print(f"[{tag}] prove_transfer(CircuitConfig(), binding=\"require\") on {card}: "
+          f"{wall:.3f} s, fitted log2 sizes {logs}, binding shape {proof.binding_shape}, "
+          f"launches {launches}, peak device memory {peak_gb:.2f} GB")
+    host = times.get("host", {})
+    print(f"[{tag}] host seconds {sum(host.values()):.3f}: " + json.dumps(
+        {k: round(v, 4) for k, v in host.items()}))
+    print_phases(f"[{tag}]", {k: v for k, v in times.items() if k != "host"})
+    if len(proof.multi.proofs) != 7:
+        raise AssertionError(f"the main path made {len(proof.multi.proofs)} table proofs, not 7")
+    if proof.binding_shape != PRODUCTION_SHAPE:
+        raise AssertionError(f"binding shape {proof.binding_shape} != {PRODUCTION_SHAPE}")
+    if logs != TRANSFER7_LOGS:
+        raise AssertionError(f"fitted sizes {logs} != the reference's {TRANSFER7_LOGS}")
+    if launches["base_dft"] <= 0:
+        raise AssertionError("the main path launched no base_dft kernel")
+    return proof, launches, census
+
+
+def phase_transfer7(card: str):
+    """The main path -> (launches, base-DFT census) of its i8 proof."""
+    import copy
+
+    from ethproof_tpu_torch.evm import transfer as tr
+    from ethproof_tpu_torch.interop import multi_proof_to_numpy
+    from ethproof_tpu_torch.tables.all import verify_all_tables
+    from ethproof_tpu_torch.tables.cpu import pi_limbs
+
+    gi, config, witness_s = transfer7_inputs()
+    print(f"[transfer7] witness: the same {N_ACCOUNTS}-account transfer, built in "
+          f"{witness_s:.2f} s")
+    proof, launches, census = prove_transfer7(gi, config, card, "transfer7")
+    digest = proof_digest(multi_proof_to_numpy(proof.multi))
+    print(f"[transfer7] proof sha256 {digest}")
+    if digest != TRANSFER7_DIGEST:
+        raise AssertionError(f"the seven-table proof's digest {digest} differs from the "
+                             f"recorded proof's ({TRANSFER7_DIGEST})")
+    t0 = time.perf_counter()
+    ok = tr.verify_transfer(proof, config, device="cuda")
+    print(f"[transfer7] port verify_transfer: {ok} in {time.perf_counter() - t0:.2f} s")
+    if not ok:
+        raise AssertionError("the seven-table transfer proof does not verify")
+    # the post state root flipped: the STARK alone (no host trie check)
+    # rejects, whether the CPU proof keeps its public inputs (they no longer
+    # match) or claims the flipped ones (its transcript and constraints fail)
+    cpu = tr.transfer_cpu_stark(proof.overlap, proof.binding_shape)
+    bad = list(proof.pi_words)
+    bad[tr.PI_STATE_ROOT_POST] ^= 1
+    relabelled = copy.copy(proof.multi)
+    relabelled.proofs = list(proof.multi.proofs)
+    relabelled.proofs[0] = copy.copy(proof.multi.proofs[0])
+    relabelled.proofs[0].public_inputs = pi_limbs(bad)
+    for name, multi in (("as proved", proof.multi), ("relabelled", relabelled)):
+        t0 = time.perf_counter()
+        rejected = not verify_all_tables(cpu, bad, multi, config, device="cuda")
+        print(f"[transfer7] verify_all_tables with PI_STATE_ROOT_POST flipped, CPU proof "
+              f"{name}: {'rejected' if rejected else 'ACCEPTED'} in "
+              f"{time.perf_counter() - t0:.2f} s")
+        if not rejected:
+            raise AssertionError(f"a flipped post state root passed verify_all_tables ({name})")
     return launches, census
 
 
@@ -708,22 +876,15 @@ def phase_profile(card: str) -> None:
 
 
 def phase_memory(card: str) -> None:
-    """Seconds and peak device memory of every phase of the full-width
-    transfer proof, with the Merkle-leaf and DEEP-combination blocking off
-    (blocks larger than any matrix) and on (the defaults): off, on, on,
-    off. The four proofs must be equal."""
+    """Seconds and peak device memory of every phase of the main path's
+    proof (each phase's peak counted from its own start)."""
     import contextlib
 
     import torch
 
-    from ethproof_tpu_torch.evm.transfer import prove_transfer
-    from ethproof_tpu_torch.fri.config import standard_fast_config
-    from ethproof_tpu_torch.hash import merkle
     from ethproof_tpu_torch.interop import multi_proof_to_numpy
     from ethproof_tpu_torch.runtime import tracing
     from ethproof_tpu_torch.stark import multi, prove
-    from ethproof_tpu_torch.tables.all import TableSizes
-    from ethproof_tpu_torch.witness import synthetic
 
     timed_phase = tracing.phase
 
@@ -733,38 +894,15 @@ def phase_memory(card: str) -> None:
         torch.cuda.reset_peak_memory_stats()
         with timed_phase(name, times, device):
             yield
-        if times is not None:
-            times["GB_" + name] = round(torch.cuda.max_memory_allocated() / 1e9, 2)
+        if times is not None:  # a table's trace and fixed commits share "commit"
+            peak = round(torch.cuda.max_memory_allocated() / 1e9, 2)
+            times["GB_" + name] = max(times.get("GB_" + name, 0.0), peak)
 
     prove.phase = multi.phase = phase_with_peak
-    defaults = (merkle.LEAF_BLOCK_ELEMS, prove.COMBINE_BLOCK_ELEMS)
-    gi = synthetic.seeded_transfer(N_ACCOUNTS, seed=5)
-    config = standard_fast_config()
-    sizes = TableSizes(**TRANSFER_LOGS, keccak=None)
-    proofs = []
-    for blocking in ("off", "on", "on", "off"):
-        merkle.LEAF_BLOCK_ELEMS, prove.COMBINE_BLOCK_ELEMS = (
-            defaults if blocking == "on" else (1 << 62, 1 << 62))
-        times: dict = {}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        proof = prove_transfer(gi, config, sizes, device="cuda", phase_times=times)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        peak = max(v for phases in times.values() for k, v in phases.items()
-                   if k.startswith("GB_"))
-        print(f"[memory] blocking {blocking}: prove_transfer on {card}: {wall:.3f} s, "
-              f"peak device memory {peak:.2f} GB (the largest phase peak)")
-        for table, phases in times.items():
-            print(f"[memory]   {blocking} {table} " + json.dumps(
-                {k: round(v, 4) for k, v in phases.items()}))
-        proofs.append(multi_proof_to_numpy(proof.multi))
-        del proof
-    merkle.LEAF_BLOCK_ELEMS, prove.COMBINE_BLOCK_ELEMS = defaults
+    gi, config, _ = transfer7_inputs()
+    proof, _, _ = prove_transfer7(gi, config, card, "memory")
     prove.phase = multi.phase = timed_phase
-    if not all(same(proofs[0], q) for q in proofs[1:]):
-        raise AssertionError("the blocking changed the proof")
-    print("[memory] the four proofs are equal field for field")
+    print(f"[memory] proof sha256 {proof_digest(multi_proof_to_numpy(proof.multi))}")
 
 
 def main() -> int:
@@ -798,19 +936,34 @@ def main() -> int:
     # the plain versions' digit matmuls run in float64, exact whatever the
     # float32 setting: every comparison below runs with TF32 allowed
     torch.backends.cuda.matmul.allow_tf32 = True
-    phase_build()
-    reports = [phase_kernels(card), phase_kernels_bf16(card)]
-    phase_adversarial(card)
-    phase_four_step()
-    phase_small_proof()
-    phase_slice(card)
-    phase_small_transfer()
-    launches, census = phase_transfer(card)
-    phase_census(card, census)
+    seconds = {}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    run("build", phase_build)
+    # the CPU side of the small-transfer comparison runs in a worker process
+    # while the card works; the pool is shut down (its process ended) on exit
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        on_cpu = pool.submit(cpu_small_transfers)
+        reports = [run("kernels", phase_kernels, card),
+                   run("kernels_bf16", phase_kernels_bf16, card)]
+        run("adversarial", phase_adversarial, card)
+        run("four_step", phase_four_step)
+        run("small_proof", phase_small_proof)
+        run("memory_2^17", phase_slice, card)
+        run("small_transfer", phase_small_transfer, on_cpu)
+    launches = run("transfer", phase_transfer, card)
+    main_launches, census = run("transfer7", phase_transfer7, card)
+    launches["base_dft"] = main_launches["base_dft"]
+    run("census", phase_census, card, census)
     for report in reports:
         report["launches"] = launches[report["name"]]
     print(json.dumps({"kernels": reports}))
-    print(f"[done] {time.perf_counter() - t_start:.1f} s in all")
+    print(f"[done] {time.perf_counter() - t_start:.1f} s in all; by phase " + json.dumps(seconds))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

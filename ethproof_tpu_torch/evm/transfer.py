@@ -1,27 +1,34 @@
 """The transfer kernel: proving a value-transfer GenerationInputs.
 
 Counterpart: ethproof_tpu/evm/transfer.py:1 (`derive_pi_words`,
-`build_kernel`, `prove_transfer`, `verify_transfer`, `check_trie_binding`,
-`TxProof`), in its host-checked binding form: `binding=None` with
-`sizes.keccak is None`, the five-table proof. The STARK proves the
-account-state arithmetic (nonce/balance/fee transition) against public
-inputs; the state-root transition is checked on the host
-(`check_trie_binding`), and account identity (path == keccak(address)) by
-re-deriving the public inputs (`derive_pi_words`). The in-circuit MPT
-binding (`evm/binding.py`, the Keccak/KeccakSponge pair) comes with the
-seven-table transfer: any other `binding` raises NotImplementedError.
+`pi_bindings_for_overlap`, `build_kernel`, `transfer_cpu_stark`,
+`prove_transfer`, `verify_transfer`, `check_trie_binding`,
+`_binding_finals`, `TxProof`), with the reference's binding modes.
+
+Soundness layering: the STARK proves the account-state ARITHMETIC
+(nonce/balance/fee transition) against public inputs, and — when a
+`binding_shape` is set (the default for witnesses inside the envelope) —
+the state-root transition itself: the kernel hashes the touched MPT path
+nodes through the KeccakSponge CTL and verifies containment/transition
+in-circuit (evm/binding.py), making PI_STATE_ROOT_PRE/POST STARK-verified
+(seven tables). `check_trie_binding` remains as host-side defense in depth
+and as the fallback for witnesses outside the binding envelope
+(trie-restructuring updates, absent accounts) or sizes without the Keccak
+pair (five tables). Account IDENTITY (path == keccak(address)) is
+host-checked via `derive_pi_words` re-derivation.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 from ..fri.config import StarkConfig
 from ..hash.keccak import keccak256
+from ..runtime.prover_state import CircuitConfig
 from ..stark.multi import MultiProof
 from ..tables.all import (
-    TABLE_NAMES,
     CircuitSizeError,
     TableSizes,
     kernel_counts,
@@ -31,8 +38,18 @@ from ..tables.all import (
 from ..tables.cpu import CpuStark
 from ..trie.nibbles import Nibbles
 from ..trie.trie import PartialTrie
-from ..witness.mpt import decode_account, encode_account
+from ..witness.mpt import EMPTY_CODE_HASH, decode_account, encode_account
 from ..witness.types import GenerationInputs
+from .binding import (
+    PRODUCTION_SHAPE,
+    BindingWitness,
+    KernelShape,
+    PiBinding,
+    Unsupported,
+    build_binding_witness,
+    emit_binding,
+    region_words_needed,
+)
 from .gas import intrinsic_gas
 from .kasm import KAsm, le_word
 from .tx import decode_tx
@@ -48,7 +65,8 @@ PI_SENDER_NONCE_POST = 6
 PI_SENDER_BAL_POST = 7
 PI_RECV_BAL_POST = 8
 PI_MINER_BAL_POST = 9
-# state roots (LE-packed 32-byte keccak roots), host-checked here
+# state roots (LE-packed 32-byte keccak roots); with in-circuit binding
+# these are STARK-verified against the witness tries (evm/binding.py)
 PI_STATE_ROOT_PRE = 10
 PI_STATE_ROOT_POST = 11
 # EIP-1559 fee split: the sender pays FEE = effective_gas_price * gas;
@@ -80,10 +98,38 @@ def overlap_pattern(sender: bytes, recipient: bytes, miner: bytes) -> str:
     return OVERLAP_DISTINCT
 
 
-def build_kernel(overlap: str = OVERLAP_DISTINCT, pi_words: Optional[List[int]] = None) -> KAsm:
-    """The per-transaction kernel (transfer arithmetic). pi_words=None
-    builds the program-only (verifier) form; the instruction stream is a
-    pure function of `overlap`.
+def pi_bindings_for_overlap(overlap: str) -> List[PiBinding]:
+    """Distinct touched accounts in sequential application order, with
+    each one's PI binding (evm/binding.py). Overlapped roles collapse to
+    the primary account — the transfer kernel's duplication asserts keep
+    all role PI words consistent with the single trie update."""
+    sender = PiBinding(
+        bal_pre_pi=PI_SENDER_BAL_PRE,
+        bal_post_pi=PI_SENDER_BAL_POST,
+        nonce_pre_pi=PI_SENDER_NONCE_PRE,
+        nonce_post_pi=PI_SENDER_NONCE_POST,
+    )
+    recv = PiBinding(bal_pre_pi=PI_RECV_BAL_PRE, bal_post_pi=PI_RECV_BAL_POST)
+    miner = PiBinding(bal_pre_pi=PI_MINER_BAL_PRE, bal_post_pi=PI_MINER_BAL_POST)
+    return {
+        OVERLAP_DISTINCT: [sender, recv, miner],
+        OVERLAP_S_EQ_R: [sender, miner],
+        OVERLAP_S_EQ_M: [sender, recv],
+        OVERLAP_R_EQ_M: [sender, recv],
+        OVERLAP_ALL: [sender],
+    }[overlap]
+
+
+def build_kernel(
+    overlap: str = OVERLAP_DISTINCT,
+    shape: Optional[KernelShape] = None,
+    pi_words: Optional[List[int]] = None,
+    bw: Optional[BindingWitness] = None,
+) -> KAsm:
+    """The per-transaction kernel: transfer arithmetic plus (with `shape`)
+    the in-circuit MPT binding section. pi_words=None builds the
+    program-only (verifier) form; the instruction stream is a pure
+    function of (overlap, shape).
 
     EVM semantics: deduct value+fee from the sender (with sufficiency
     checks), credit value to the recipient, credit fee to the miner —
@@ -91,7 +137,9 @@ def build_kernel(overlap: str = OVERLAP_DISTINCT, pi_words: Optional[List[int]] 
     convention for overlapped roles: their pre/post words duplicate the
     single underlying account's values, and the kernel asserts the
     duplication."""
-    e = KAsm(concrete=pi_words is not None)
+    bindings = pi_bindings_for_overlap(overlap)
+    rw = region_words_needed(shape, len(bindings)) if shape is not None else 0
+    e = KAsm(concrete=pi_words is not None, region_words=rw)
     pv = pi_words if pi_words is not None else [None] * NUM_PI_WORDS
 
     s_nonce = e.load_pi(PI_SENDER_NONCE_PRE, pv[PI_SENDER_NONCE_PRE])
@@ -141,12 +189,19 @@ def build_kernel(overlap: str = OVERLAP_DISTINCT, pi_words: Optional[List[int]] 
     e.assert_eq(e.load_pi(PI_SENDER_BAL_POST, pv[PI_SENDER_BAL_POST]), s_post)
     e.assert_eq(e.load_pi(PI_RECV_BAL_POST, pv[PI_RECV_BAL_POST]), r_post)
     e.assert_eq(e.load_pi(PI_MINER_BAL_POST, pv[PI_MINER_BAL_POST]), m_post)
+
+    if shape is not None:
+        emit_binding(
+            e, shape, bindings, PI_STATE_ROOT_PRE, PI_STATE_ROOT_POST, bw, pi_words
+        )
     e.finalize_ts()
     return e
 
 
-def transfer_cpu_stark(overlap: str = OVERLAP_DISTINCT) -> CpuStark:
-    return CpuStark(build_kernel(overlap).prog, NUM_PI_WORDS)
+def transfer_cpu_stark(
+    overlap: str = OVERLAP_DISTINCT, shape: Optional[KernelShape] = None
+) -> CpuStark:
+    return CpuStark(build_kernel(overlap, shape).prog, NUM_PI_WORDS)
 
 
 def _acct_key(addr: bytes) -> Nibbles:
@@ -155,8 +210,8 @@ def _acct_key(addr: bytes) -> Nibbles:
 
 @dataclass
 class TxProof:
-    """A per-transaction proof: the five-table multi-proof plus the
-    statement it proves (PI words and the witness for the host checks)."""
+    """A per-transaction proof: the multi-proof plus the statement it
+    proves (PI words and the witness for the host checks)."""
 
     multi: Optional[MultiProof]
     pi_words: List[int]
@@ -164,6 +219,10 @@ class TxProof:
     sender: bytes
     recipient: bytes
     miner: bytes
+    # set when the proof's kernel includes the in-circuit MPT binding
+    # section; part of the statement (the verifier rebuilds the program
+    # from (overlap, binding_shape))
+    binding_shape: Optional[KernelShape] = None
 
     @property
     def overlap(self) -> str:
@@ -175,7 +234,7 @@ def _empty_account() -> dict:
         "nonce": 0,
         "balance": 0,
         "storage_root": PartialTrie().hash(),
-        "code_hash": keccak256(b""),
+        "code_hash": EMPTY_CODE_HASH,
     }
 
 
@@ -271,46 +330,114 @@ def _nonce_of(gi: GenerationInputs, addr: bytes) -> int:
     return decode_account(raw)["nonce"] if raw is not None else 0
 
 
+def _binding_finals(gi, pi, sender: bytes, recipient: bytes, miner: bytes):
+    """(key, nonce_post, balance_post) per DISTINCT account, in the same
+    sequential order as pi_bindings_for_overlap."""
+    finals = [(sender, pi[PI_SENDER_NONCE_POST], pi[PI_SENDER_BAL_POST])]
+    if recipient != sender:
+        finals.append((recipient, _nonce_of(gi, recipient), pi[PI_RECV_BAL_POST]))
+    if miner != sender and miner != recipient:
+        finals.append((miner, _nonce_of(gi, miner), pi[PI_MINER_BAL_POST]))
+    return [(_acct_key(a), n, b) for a, n, b in finals]
+
+
 def prove_transfer(
     gi: GenerationInputs,
     config: StarkConfig,
-    sizes: Optional[TableSizes] = None,
-    binding: object = None,
+    sizes: Union[TableSizes, CircuitConfig, None] = None,
+    binding: object = "auto",
     device=None,
     phase_times: Optional[Dict[str, Dict[str, float]]] = None,
 ) -> TxProof:
     """Prove one transfer on `device` (None: the CUDA card).
 
-    sizes: explicit TableSizes with keccak=None (None: the test-tier
-    defaults, without the keccak pair). binding: only None (host-checked
-    trie binding). `phase_times`: see `tables.all.prove_all_tables`."""
-    if binding is not None:
-        raise NotImplementedError(
-            f"binding={binding!r}: in-circuit trie binding comes with the seven-table "
-            "transfer; only binding=None (host-checked) is ported"
-        )
-    if sizes is None:
-        sizes = TableSizes(keccak=None)
-    if not isinstance(sizes, TableSizes):
-        raise NotImplementedError(
-            f"sizes={type(sizes).__name__}: only explicit TableSizes are ported"
-        )
-    if sizes.keccak is not None:
-        raise NotImplementedError(
-            "sizes.keccak must be None: the Keccak/KeccakSponge pair comes with the "
-            "seven-table transfer"
-        )
+    sizes: explicit TableSizes, a CircuitConfig (per-proof fit within its
+    ranges), or None for the test-tier defaults.
 
+    binding: "auto" (in-circuit MPT binding when the witness fits the
+    envelope and the keccak pair is enabled; silent host-checked
+    fallback otherwise), None (host-checked only), a KernelShape
+    (required — Unsupported propagates), or "require".
+
+    `phase_times`: see `tables.all.prove_all_tables`; its "host" entry
+    also receives the seconds of the binding witness and of the kernel's
+    assembly."""
+    host: Dict[str, float] = {}
     pi, sender, recipient, miner = derive_pi_words(gi)
-    kasm = build_kernel(overlap_pattern(sender, recipient, miner), pi)
-    counts = kernel_counts(kasm.prog, kasm.hash_requests())
-    for name in TABLE_NAMES:
-        log = getattr(sizes, name)
-        if counts[name] > (1 << log):
-            raise CircuitSizeError(f"{name} needs {counts[name]} rows > 2^{log}")
+    overlap = overlap_pattern(sender, recipient, miner)
 
+    shape: Optional[KernelShape] = None
+    if isinstance(binding, KernelShape):
+        shape, required = binding, True
+    elif binding == "require":
+        shape, required = PRODUCTION_SHAPE, True
+    elif binding == "auto":
+        shape, required = PRODUCTION_SHAPE, False
+    elif binding is None:
+        shape, required = None, False
+    else:
+        raise ValueError(f"bad binding mode {binding!r}")
+    explicit_no_keccak = isinstance(sizes, TableSizes) and sizes.keccak is None
+    if explicit_no_keccak and shape is not None:
+        assert not required, "in-circuit binding needs the keccak table pair"
+        shape = None
+    if (
+        shape is not None
+        and not required
+        and (sizes is None or isinstance(sizes, TableSizes))
+    ):
+        # cheap pre-guard: the smallest bound kernel needs ~2^11 cpu rows;
+        # don't build one just to discover the configured sizes can't fit
+        cpu_log = sizes.cpu if isinstance(sizes, TableSizes) else TableSizes().cpu
+        if (1 << cpu_log) < 2048:
+            shape = None
+
+    t0 = time.perf_counter()
+    bw = None
+    if shape is not None:
+        try:
+            bw = build_binding_witness(
+                gi.tries.state_trie,
+                _binding_finals(gi, pi, sender, recipient, miner),
+                shape,
+            )
+        except Unsupported:
+            if required:
+                raise
+            shape = None
+    host["binding_witness"] = time.perf_counter() - t0
+
+    def build(s, w):
+        kasm = build_kernel(overlap, s, pi, w)
+        counts = kernel_counts(kasm.prog, kasm.hash_requests())
+        if isinstance(sizes, CircuitConfig):
+            return kasm, TableSizes.fit(sizes, counts)
+        fitted = sizes if sizes is not None else TableSizes()
+        checked = ["cpu", "arithmetic", "logic", "bytepacking", "memory"]
+        if s is not None and fitted.keccak is not None:
+            checked += ["keccak", "keccak_sponge"]
+        for name in checked:
+            log = getattr(fitted, name)
+            if counts[name] > (1 << log):
+                raise CircuitSizeError(f"{name} needs {counts[name]} rows > 2^{log}")
+        return kasm, fitted
+
+    t0 = time.perf_counter()
+    try:
+        kasm, fitted = build(shape if bw else None, bw)
+    except CircuitSizeError:
+        # auto mode: the bound kernel outgrows the configured sizes —
+        # fall back to the host-checked binding
+        if required or bw is None:
+            raise
+        shape = bw = None
+        kasm, fitted = build(None, None)
+    host["kernel"] = time.perf_counter() - t0
+
+    if phase_times is not None:
+        phase_times["host"] = host
     multi, _ = prove_all_tables(
-        CpuStark(kasm.prog, NUM_PI_WORDS), pi, sizes, config,
+        CpuStark(kasm.prog, NUM_PI_WORDS), pi, fitted, config,
         hash_requests=kasm.hash_requests(), kernel_witness=kasm.witness,
         device=device, phase_times=phase_times,
     )
@@ -321,11 +448,12 @@ def prove_transfer(
         sender=sender,
         recipient=recipient,
         miner=miner,
+        binding_shape=shape if bw else None,
     )
 
 
 def verify_transfer(proof: TxProof, config: StarkConfig, device=None) -> bool:
-    """PI re-derivation + the five-table STARK + the host trie binding.
+    """PI re-derivation + the multi-table STARK + the host trie binding.
     `device` is where the tables' fixed-column caps are committed."""
     # 1. public inputs must re-derive from the witness (sender recovery,
     #    fee computation, pre-state reads)
@@ -338,10 +466,14 @@ def verify_transfer(proof: TxProof, config: StarkConfig, device=None) -> bool:
     if recipient != proof.recipient or miner != proof.miner:
         return False
     # 2. the STARK proof of the kernel execution — the program is rebuilt
-    #    from the statement (the overlap pattern)
+    #    from the statement (overlap pattern + binding shape); with a
+    #    binding shape the STARK itself verifies the state-root
+    #    transition against the PI roots
     if proof.multi is None:
         return False
-    cpu = transfer_cpu_stark(overlap_pattern(sender, recipient, miner))
+    if proof.binding_shape is not None and not isinstance(proof.binding_shape, KernelShape):
+        return False
+    cpu = transfer_cpu_stark(overlap_pattern(sender, recipient, miner), proof.binding_shape)
     if not verify_all_tables(cpu, proof.pi_words, proof.multi, config, device):
         return False
     # 3. trie binding: PI words produce the claimed post state root

@@ -56,10 +56,12 @@ def _verify_merkle(
     path: np.ndarray,
     cap: np.ndarray,
     expected_path_len: "int | None" = None,
+    digest: "List[int] | None" = None,
 ) -> bool:
     """Structural violations (wrong cap/path shape, index out of range)
     return False rather than raising — adversarial proofs must never
-    crash the verifier."""
+    crash the verifier. `digest`, when given, is the leaf's digest
+    (`tree_digest` of `leaf_elems`) computed by the caller."""
     cap = np.asarray(cap)
     if cap.ndim != 2 or cap.shape[0] != 4 or cap.shape[1] == 0:
         return False
@@ -73,7 +75,8 @@ def _verify_merkle(
         return False
     if not 0 <= index < (cap_w << int(path.shape[0])):
         return False
-    digest = poseidon.tree_digest_host(leaf_elems)
+    if digest is None:
+        digest = poseidon.tree_digest_host(leaf_elems)
     idx = index
     for lvl in range(path.shape[0]):
         sib = [int(v) for v in path[lvl]]

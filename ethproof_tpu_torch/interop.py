@@ -8,7 +8,9 @@ caller can build the reference's dataclasses and run the reference
 verifier on a proof made by the port. `multi_proof_to_numpy` gives one
 such dict per table of a `MultiProof` (ethproof_tpu/stark/multi.py:46);
 `tx_proof_to_numpy` adds the statement of a transfer's `TxProof`
-(ethproof_tpu/evm/transfer.py:216): its PI words and the three parties.
+(ethproof_tpu/evm/transfer.py:216): its PI words, the three parties and
+the binding shape (`{"levels", "node_words"}` of its `KernelShape`, or None
+for a host-checked binding).
 The witness is not converted: a caller rebuilds it with either package's
 constructors. Uses numpy only.
 """
@@ -78,4 +80,8 @@ def tx_proof_to_numpy(tx) -> Dict[str, Any]:
         "sender": bytes(tx.sender),
         "recipient": bytes(tx.recipient),
         "miner": bytes(tx.miner),
+        "binding_shape": (
+            None if tx.binding_shape is None
+            else {"levels": int(tx.binding_shape.levels),
+                  "node_words": int(tx.binding_shape.node_words)}),
     }

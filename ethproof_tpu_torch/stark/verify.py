@@ -3,8 +3,11 @@
 Counterpart: ethproof_tpu/stark/verify.py:1. A copy, except that the
 constraint identity at zeta runs the table's `eval` directly on host
 extension scalars (the counterpart replays the recorded IR program, which
-evaluates the same expression), and the fixed-column cap comes from the
-port's own commitment on `device`.
+evaluates the same expression), the fixed-column cap comes from the
+port's own commitment on `device`, and the opened leaves of each oracle
+tree are digested in one batch on `device` (the same `tree_digest` as the
+host's, one call for all queries: a wide table's leaves are thousands of
+permutations each).
 
 Reference equivalent: starky's `verify_stark_proof` + CTL verification. Checks:
 
@@ -26,7 +29,10 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from .. import resolve_device
+from ..gf import field as gfp
 from ..gf import field_host as fh
+from ..hash import poseidon
 from ..fri.challenger import Challenger
 from ..fri.config import StarkConfig
 from ..fri.verify import _verify_merkle, ext_add, ext_mul, ext_sub, fri_verify
@@ -66,6 +72,13 @@ def _ext_pow(x: Ext, e: int) -> Ext:
 
 def _pairs(arr: np.ndarray) -> List[Ext]:
     return [(int(v[0]), int(v[1])) for v in arr]
+
+
+def _leaf_digests(values: np.ndarray, device) -> List[List[int]]:
+    """tree_digest of every opened row of `values` (num_q, width), hashed
+    in one batch on `device`."""
+    d = gfp.to_u64(poseidon.tree_digest(gfp.from_u64(np.ascontiguousarray(values.T), device)))
+    return [[int(v) for v in d[:, q]] for q in range(values.shape[0])]
 
 
 def stark_verify(
@@ -236,18 +249,26 @@ def stark_verify(
         return False
     if k_fixed and fq.paths.shape[0] != num_q:
         return False
+    dev = resolve_device(device)
+    t_dig = _leaf_digests(tq.values, dev)
+    q_dig = _leaf_digests(qq.values, dev)
+    a_dig = _leaf_digests(aq.values, dev) if k_aux else None
+    f_dig = _leaf_digests(fq.values, dev) if k_fixed else None
     for q, (idx, comp_val) in enumerate(round0):
         t_leaf = [int(v) for v in tq.values[q]]
         q_leaf = [int(v) for v in qq.values[q]]
         a_leaf = [int(v) for v in aq.values[q]] if k_aux else []
         f_leaf = [int(v) for v in fq.values[q]] if k_fixed else []
-        if not _verify_merkle(t_leaf, idx, tq.paths[q], proof.trace_cap, path_len):
+        if not _verify_merkle(t_leaf, idx, tq.paths[q], proof.trace_cap, path_len, t_dig[q]):
             return False
-        if not _verify_merkle(q_leaf, idx, qq.paths[q], proof.quotient_cap, path_len):
+        if not _verify_merkle(q_leaf, idx, qq.paths[q], proof.quotient_cap, path_len,
+                              q_dig[q]):
             return False
-        if k_aux and not _verify_merkle(a_leaf, idx, aq.paths[q], proof.aux_cap, path_len):
+        if k_aux and not _verify_merkle(a_leaf, idx, aq.paths[q], proof.aux_cap, path_len,
+                                        a_dig[q]):
             return False
-        if k_fixed and not _verify_merkle(f_leaf, idx, fq.paths[q], fixed_cap, path_len):
+        if k_fixed and not _verify_merkle(f_leaf, idx, fq.paths[q], fixed_cap, path_len,
+                                          f_dig[q]):
             return False
         x = shift * pow(w, idx, P) % P
         b0: Ext = (0, 0)

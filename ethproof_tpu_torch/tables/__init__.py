@@ -1,7 +1,6 @@
 """zkEVM tables. Counterpart: ethproof_tpu/tables/__init__.py:1.
 
-The five tables of the transfer proof (CPU, Arithmetic, Logic,
-BytePacking, Memory) and `all`, their wiring; the Keccak/KeccakSponge pair
-is not ported yet (`keccak_sponge` holds only the names the CPU table and
-the kernel assembler use).
+The seven tables of the transfer proof (CPU, Arithmetic, Logic,
+BytePacking, Memory, Keccak, KeccakSponge) and `all`, their wiring. The
+EVM machine table (`tables/evm.py`) is not ported yet.
 """

@@ -1,12 +1,15 @@
-"""All-tables wiring: the five-table multi-table proof of one transaction.
+"""All-tables wiring: the multi-table proof of one transaction.
 
-Counterpart: ethproof_tpu/tables/all.py:1-255 (`build_ctls`, `TableSizes`,
-`kernel_counts`, `all_starks`, `prove_all_tables`, `verify_all_tables`),
-the part without the Keccak/KeccakSponge pair: tables CPU, Arithmetic,
-Logic, BytePacking and Memory with three CTLs (cpu<->arithmetic,
-cpu<->logic, cpu/bytepacking<->memory). `with_keccak=True` raises
-NotImplementedError: the pair comes with the seven-table transfer. The EVM
-machine's wiring (`build_ctls_evm`, `prove_evm_tables`) is not ported.
+Counterpart: ethproof_tpu/tables/all.py:1-258 (`build_ctls`, `TableSizes`,
+`kernel_counts`, `all_starks`, `prove_all_tables`, `verify_all_tables`).
+Seven tables: CPU, Arithmetic, Logic, BytePacking, Memory, Keccak and
+KeccakSponge, with the CTLs cpu<->arithmetic, cpu/sponge<->logic,
+cpu/bytepacking/sponge<->memory, sponge<->keccak (input and output) and,
+when the kernel hashes, cpu<->sponge (first and final rows).
+`with_keccak=False` (`TableSizes.keccak is None`) drops the Keccak pair
+and its CTLs: the five-table proof of a kernel that issues no hash
+request. The EVM machine's wiring (`build_ctls_evm`, `prove_evm_tables`)
+is not ported.
 """
 
 from __future__ import annotations
@@ -19,17 +22,14 @@ import numpy as np
 
 from ..fri.config import StarkConfig
 from ..stark.multi import CrossTableLookup, MultiProof, prove_multi, verify_multi
-from . import arithmetic, bytepacking, logic, memory
+from . import arithmetic, bytepacking, keccak, keccak_sponge, logic, memory
 from .cpu import ARITH_OPS, LOGIC_OPS, OP_NOP, CpuStark, CpuTraceResult, execute, pi_limbs
 from .keccak_sponge import RATE_BYTES
 
 # table indices (stable order)
-T_CPU, T_ARITH, T_LOGIC, T_BYTEPACK, T_MEM = range(5)
-TABLE_NAMES = ("cpu", "arithmetic", "logic", "bytepacking", "memory")
-
-_SEVEN_TABLES = (
-    "the Keccak/KeccakSponge tables are not ported yet: they come with the "
-    "seven-table transfer (in-circuit trie binding)"
+T_CPU, T_ARITH, T_LOGIC, T_BYTEPACK, T_MEM, T_KECCAK, T_SPONGE = range(7)
+TABLE_NAMES = (
+    "cpu", "arithmetic", "logic", "bytepacking", "memory", "keccak", "keccak_sponge",
 )
 
 
@@ -41,18 +41,20 @@ def _ceil_log2(x: int) -> int:
     return max(int(x) - 1, 0).bit_length()
 
 
-def build_ctls(cpu: CpuStark, with_keccak: bool = False) -> List[CrossTableLookup]:
-    if with_keccak:
-        raise NotImplementedError(_SEVEN_TABLES)
+def build_ctls(cpu: CpuStark, with_keccak: bool = True) -> List[CrossTableLookup]:
     mem_looking = [(T_CPU, spec) for spec in cpu.memory_ctl_specs()]
     mem_looking += [(T_BYTEPACK, s) for s in bytepacking.memory_ctl_specs()]
-    return [
+    logic_looking = [(T_CPU, cpu.logic_ctl_spec())]
+    if with_keccak:
+        mem_looking += [(T_SPONGE, s) for s in keccak_sponge.memory_ctl_specs()]
+        logic_looking += [(T_SPONGE, s) for s in keccak_sponge.logic_ctl_specs()]
+    ctls = [
         CrossTableLookup(
             looking=((T_CPU, cpu.arith_ctl_spec()),),
             looked=(T_ARITH, arithmetic.ArithmeticStark.ctl_spec),
         ),
         CrossTableLookup(
-            looking=((T_CPU, cpu.logic_ctl_spec()),),
+            looking=tuple(logic_looking),
             looked=(T_LOGIC, logic.LogicStark.ctl_spec),
         ),
         CrossTableLookup(
@@ -60,13 +62,40 @@ def build_ctls(cpu: CpuStark, with_keccak: bool = False) -> List[CrossTableLooku
             looked=(T_MEM, memory.MemoryStark.ctl_spec),
         ),
     ]
+    if with_keccak:
+        kc = keccak.KeccakStark()
+        ctls += [
+            CrossTableLookup(
+                looking=((T_SPONGE, keccak_sponge.keccak_input_ctl_spec()),),
+                looked=(T_KECCAK, kc.input_ctl_spec()),
+            ),
+            CrossTableLookup(
+                looking=((T_SPONGE, keccak_sponge.keccak_output_ctl_spec()),),
+                looked=(T_KECCAK, kc.output_ctl_spec()),
+            ),
+        ]
+        if cpu.uses_sponge:
+            # kernel <-> sponge request binding (first + final rows)
+            cpu_first, cpu_digest = cpu.sponge_ctl_specs()
+            ctls += [
+                CrossTableLookup(
+                    looking=((T_CPU, cpu_first),),
+                    looked=(T_SPONGE, keccak_sponge.first_ctl_spec()),
+                ),
+                CrossTableLookup(
+                    looking=((T_CPU, cpu_digest),),
+                    looked=(T_SPONGE, keccak_sponge.digest_ctl_spec()),
+                ),
+            ]
+    return ctls
 
 
 @dataclass
 class TableSizes:
     """log2 trace lengths per table (the reference's *_CIRCUIT_SIZE
-    ranges). keccak=None drops the Keccak/KeccakSponge pair, which is the
-    only form the port proves."""
+    ranges). keccak=None drops the Keccak/KeccakSponge pair (and their
+    CTLs) from the proof — valid whenever the kernel issues no hash
+    request; the verifier requires the same configuration."""
 
     cpu: int = 5
     arithmetic: int = 6
@@ -139,33 +168,57 @@ def kernel_counts(program, hash_requests=()) -> Dict[str, int]:
     }
 
 
-def all_starks(cpu: CpuStark, with_keccak: bool = False):
-    if with_keccak:
-        raise NotImplementedError(_SEVEN_TABLES)
-    return [
+def all_starks(cpu: CpuStark, with_keccak: bool = True):
+    out = [
         cpu,
         arithmetic.ArithmeticStark(),
         logic.LogicStark(),
         bytepacking.BytePackingStark(),
         memory.MemoryStark(),
     ]
+    if with_keccak:
+        out += [keccak.KeccakStark(), keccak_sponge.KeccakSpongeStark()]
+    return out
 
 
 def generate_traces(
     cpu: CpuStark,
     pi_words: List[int],
     sizes: TableSizes,
+    hash_requests: List["keccak_sponge.HashRequest"] = (),
     kernel_witness: Optional[List[int]] = None,
+    host_times: Optional[Dict[str, float]] = None,
 ) -> Tuple[List[np.ndarray], CpuTraceResult]:
-    """Execute the kernel on the host and fill the five tables' traces."""
-    if sizes.keccak is not None:
-        raise NotImplementedError(_SEVEN_TABLES)
-    res = execute(cpu.program, pi_words, 1 << sizes.cpu, witness=kernel_witness)
-    arith_tr, _ = arithmetic.generate_trace(res.arith_requests, 1 << sizes.arithmetic)
-    bp_tr, bp_mem_ops = bytepacking.generate_trace([], 1 << sizes.bytepacking)
-    logic_tr, _ = logic.generate_trace(res.logic_requests, 1 << sizes.logic)
-    mem_tr = memory.generate_trace(res.mem_ops + bp_mem_ops, 1 << sizes.memory)
-    return [res.trace, arith_tr, logic_tr, bp_tr, mem_tr], res
+    """Execute the kernel on the host and fill the tables' traces (seven,
+    or five when sizes.keccak is None). `host_times`, when given, receives
+    the seconds of the kernel's execution and of each table's generator."""
+    with_keccak = sizes.keccak is not None
+    assert with_keccak or not hash_requests, "hash requests need the keccak pair"
+    times = host_times if host_times is not None else {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        times[name] = time.perf_counter() - t0
+        return out
+
+    res = timed("execute", execute, cpu.program, pi_words, 1 << sizes.cpu, kernel_witness)
+    arith_tr, _ = timed("arithmetic", arithmetic.generate_trace, res.arith_requests,
+                        1 << sizes.arithmetic)
+    bp_tr, bp_mem_ops = timed("bytepacking", bytepacking.generate_trace, [],
+                              1 << sizes.bytepacking)
+    logic_reqs, mem_ops = res.logic_requests, res.mem_ops + bp_mem_ops
+    if with_keccak:
+        sponge = timed("keccak_sponge", keccak_sponge.generate_trace, list(hash_requests),
+                       1 << sizes.keccak_sponge)
+        logic_reqs, mem_ops = logic_reqs + sponge.logic_requests, mem_ops + sponge.mem_ops
+    logic_tr, _ = timed("logic", logic.generate_trace, logic_reqs, 1 << sizes.logic)
+    mem_tr = timed("memory", memory.generate_trace, mem_ops, 1 << sizes.memory)
+    traces = [res.trace, arith_tr, logic_tr, bp_tr, mem_tr]
+    if with_keccak:
+        traces += [timed("keccak", keccak.generate_trace, sponge.perm_inputs, 1 << sizes.keccak),
+                   sponge.trace]
+    return traces, res
 
 
 def prove_all_tables(
@@ -178,21 +231,22 @@ def prove_all_tables(
     device=None,
     phase_times: Optional[Dict[str, Dict[str, float]]] = None,
 ) -> Tuple[MultiProof, CpuTraceResult]:
-    """Execute the kernel and prove the five tables under one transcript on
-    `device` (None: the CUDA card). `phase_times`, when given, receives
-    the host's trace generation seconds (`["host"]["tracegen"]`) and each
-    table's phase seconds under its name in TABLE_NAMES."""
-    if hash_requests:
-        raise NotImplementedError(_SEVEN_TABLES)
-    t0 = time.perf_counter()
-    traces, res = generate_traces(cpu, pi_words, sizes, kernel_witness)
-    tracegen_s = time.perf_counter() - t0
-    starks = all_starks(cpu)
+    """Execute the kernel and prove all tables (seven, or five when
+    sizes.keccak is None) under one transcript on `device` (None: the CUDA
+    card). `phase_times`, when given, receives the host's seconds
+    (`["host"]`: the kernel's `execute` and each table's trace generator)
+    and each table's phase seconds under its name in TABLE_NAMES."""
+    with_keccak = sizes.keccak is not None
+    host: Dict[str, float] = {}
+    traces, res = generate_traces(cpu, pi_words, sizes, list(hash_requests), kernel_witness,
+                                  host)
+    starks = all_starks(cpu, with_keccak)
     pis: List[List[int]] = [pi_limbs(pi_words)] + [[]] * (len(starks) - 1)
     table_times: Optional[List[Dict[str, float]]] = [] if phase_times is not None else None
-    proof = prove_multi(starks, traces, pis, build_ctls(cpu), config, device, table_times)
+    proof = prove_multi(starks, traces, pis, build_ctls(cpu, with_keccak), config, device,
+                        table_times)
     if phase_times is not None:
-        phase_times["host"] = {"tracegen": tracegen_s}
+        phase_times.setdefault("host", {}).update(host)
         phase_times.update(zip(TABLE_NAMES, table_times))
     return proof, res
 
@@ -204,10 +258,11 @@ def verify_all_tables(
     config: StarkConfig,
     device=None,
 ) -> bool:
-    starks = all_starks(cpu)
+    with_keccak = len(proof.proofs) == 7
+    starks = all_starks(cpu, with_keccak)
     if len(proof.proofs) != len(starks):
         return False
     # the CPU proof must carry exactly the claimed public inputs
     if proof.proofs[T_CPU].public_inputs != pi_limbs(pi_words):
         return False
-    return verify_multi(starks, proof, build_ctls(cpu), config, device)
+    return verify_multi(starks, proof, build_ctls(cpu, with_keccak), config, device)

@@ -1,13 +1,17 @@
 """State-trie account codec.
 
-Counterpart: ethproof_tpu/witness/mpt.py:127-145 (`decode_account`,
-`encode_account`, copied). The RPC proof-node reconstruction and diff
-application of that module are not ported.
+Counterpart: ethproof_tpu/witness/mpt.py:40 and :127-145
+(`EMPTY_CODE_HASH`, `decode_account`, `encode_account`, copied). The RPC
+proof-node reconstruction and diff application of that module are not
+ported.
 """
 
 from __future__ import annotations
 
+from ..hash.keccak import keccak256
 from ..trie import rlp
+
+EMPTY_CODE_HASH = keccak256(b"")
 
 
 def decode_account(data: bytes):

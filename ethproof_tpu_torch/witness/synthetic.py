@@ -19,7 +19,7 @@ from ..evm.tx import private_key_to_address, sign_eip1559_tx, sign_legacy_tx
 from ..hash.keccak import keccak256
 from ..trie.nibbles import Nibbles
 from ..trie.trie import PartialTrie
-from .mpt import encode_account
+from .mpt import EMPTY_CODE_HASH, encode_account
 from .types import BlockMetadata, GenerationInputs, TrieInputs, TrieRoots
 
 GAS = 21000  # intrinsic gas of an empty-data transfer
@@ -34,7 +34,7 @@ def _state_trie(accounts: Accounts) -> PartialTrie:
     for addr, (nonce, balance) in accounts.items():
         trie.insert(Nibbles.from_bytes(keccak256(addr)), encode_account({
             "nonce": nonce, "balance": balance,
-            "storage_root": PartialTrie().hash(), "code_hash": keccak256(b""),
+            "storage_root": PartialTrie().hash(), "code_hash": EMPTY_CODE_HASH,
         }))
     return trie
 
@@ -54,16 +54,28 @@ def transfer_inputs(raw_tx: bytes, pre: Accounts, post: Accounts, miner: bytes,
     )
 
 
-def small_transfer(recipient_post_extra: int = 0) -> GenerationInputs:
-    """The CPU tier's transfer: a legacy zero-fee transfer of 3 wei from a
-    40-wei sender (values this small fit the 2^6-row range tables).
+def small_transfer(recipient_post_extra: int = 0, *, sender_bal: int = 40, gas_price: int = 0,
+                   recipient_is_sender: bool = False, miner_is_sender: bool = False,
+                   miner_is_recipient: bool = False) -> GenerationInputs:
+    """The CPU tier's transfer: a legacy transfer of 3 wei from a 40-wei
+    sender at gas price 0 (values this small fit the 2^6-row range tables).
     `recipient_post_extra` credits the recipient that many more wei in the
-    post state (a tampered post root)."""
+    post state (a tampered post root). The keywords are those of
+    tests/test_transfer_e2e.py:67: the sender's balance, the gas price, and
+    the parties' overlap (the recipient or the miner is the sender, or the
+    miner is the recipient)."""
     sender = private_key_to_address(SMALL_KEY)
-    recipient, miner = b"\xbb" * 20, b"\xcc" * 20
-    raw = sign_legacy_tx(4, 0, GAS, recipient, 3, b"", SMALL_KEY, chain_id=1)
-    pre = {sender: (4, 40), recipient: (0, 30), miner: (0, 7)}
-    post = {sender: (5, 37), recipient: (0, 33 + recipient_post_extra), miner: (0, 7)}
+    recipient = sender if recipient_is_sender else b"\xbb" * 20
+    miner = sender if miner_is_sender else recipient if miner_is_recipient else b"\xcc" * 20
+    raw = sign_legacy_tx(4, gas_price, GAS, recipient, 3, b"", SMALL_KEY, chain_id=1)
+    pre = {sender: (4, sender_bal)}
+    pre.setdefault(recipient, (0, 30))
+    pre.setdefault(miner, (0, 7))
+    balance = {addr: bal for addr, (_, bal) in pre.items()}
+    balance[sender] -= 3 + gas_price * GAS
+    balance[recipient] += 3 + recipient_post_extra
+    balance[miner] += gas_price * GAS
+    post = {addr: (nonce + (addr == sender), balance[addr]) for addr, (nonce, _) in pre.items()}
     return transfer_inputs(raw, pre, post, miner, 0)
 
 

@@ -148,3 +148,24 @@ def test_small_transfer_proof_on_card_equals_cpu(card, monkeypatch, encoding):
     assert bd.LAUNCHES[bd.KERNELS[encoding]] > before
     _assert_same(tx_proof_to_numpy(got), tx_proof_to_numpy(want))
     assert verify_transfer(got, cfg, device=card)
+
+
+@pytest.mark.parametrize("encoding", ["i8", "bf16"])
+def test_seven_table_transfer_on_card_equals_cpu(card, monkeypatch, encoding):
+    """The seven-table transfer at the CPU tier's sizes (`SIZES7` of
+    tests/test_transfer_e2e.py: the Keccak pair on, the binding dropped by
+    the cpu < 2^11 pre-guard): made on the card under each encoding, every
+    table proof equals the CPU plain path's, and the port verifies it."""
+    cfg = StarkConfig(num_challenges=2, fri_config=FriConfig(
+        rate_bits=2, cap_height=1, proof_of_work_bits=4, num_query_rounds=12,
+        arity_bits=2, final_poly_bits=2))
+    sizes = TableSizes(cpu=5, arithmetic=6, logic=4, bytepacking=9, memory=7)
+    gi = synthetic.small_transfer()
+    want = prove_transfer(gi, cfg, sizes, device="cpu")
+    monkeypatch.setattr(bd, "ENCODING", encoding)
+    before = bd.LAUNCHES[bd.KERNELS[encoding]]
+    got = prove_transfer(gi, cfg, sizes, device=card)
+    assert bd.LAUNCHES[bd.KERNELS[encoding]] > before
+    assert len(got.multi.proofs) == 7
+    _assert_same(tx_proof_to_numpy(got), tx_proof_to_numpy(want))
+    assert verify_transfer(got, cfg, device=card)

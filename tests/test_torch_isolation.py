@@ -61,6 +61,10 @@ MODULES = [
     "ethproof_tpu_torch.tables.bytepacking",
     "ethproof_tpu_torch.tables.cpu",
     "ethproof_tpu_torch.tables.all",
+    "ethproof_tpu_torch.tables.keccak",
+    "ethproof_tpu_torch.runtime.parsing",
+    "ethproof_tpu_torch.runtime.prover_state",
+    "ethproof_tpu_torch.evm.binding",
 ]
 
 

@@ -1,13 +1,16 @@
 """The transfer's tables and their cross-table wiring: the port vs the JAX package.
 
 For the CPU, Arithmetic, Logic and BytePacking tables: the port's trace
-generator equals the JAX one on the same seeded requests, and the port's
-constraint sweep (`stark.prove._sweep`, the direct evaluation of the table's
-`eval` plus its CTL and logUp constraints) equals the JAX direct-evaluation
-sweep (`_sweep_jit(..., use_jit=False)`, ethproof_tpu/stark/prove.py:735) on
-the same seeded LDE columns at 2^4-2^5 rows. The CTL instances and labels of
-`stark.multi._instances_for_table` equal the JAX ones for every table of the
-five-table wiring. Exact u64 equality throughout.
+generator equals the JAX one on the same seeded requests. For those and the
+Keccak and KeccakSponge tables, the port's constraint sweep
+(`stark.prove._sweep`, the direct evaluation of the table's `eval` plus its
+CTL and logUp constraints) equals the JAX
+direct-evaluation sweep (`_sweep_jit(..., use_jit=False)`,
+ethproof_tpu/stark/prove.py:735) on the same seeded LDE columns at 2^4-2^5
+rows. The CTL instances and labels of `stark.multi._instances_for_table`
+equal the JAX ones for every table of the five-table wiring and of the
+seven-table wiring of a kernel that hashes (the bound transfer kernel).
+Exact u64 equality throughout.
 """
 
 import dataclasses
@@ -16,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from ethproof_tpu.evm import binding as jbd
 from ethproof_tpu.evm import transfer as jtr
 from ethproof_tpu.gf import field as jgf
 from ethproof_tpu.stark import multi as jmulti
@@ -24,7 +28,10 @@ from ethproof_tpu.tables import all as jall
 from ethproof_tpu.tables import arithmetic as jar
 from ethproof_tpu.tables import bytepacking as jbp
 from ethproof_tpu.tables import cpu as jcpu
+from ethproof_tpu.tables import keccak as jkc
+from ethproof_tpu.tables import keccak_sponge as jks
 from ethproof_tpu.tables import logic as jlg
+from ethproof_tpu_torch.evm import binding as tbd
 from ethproof_tpu_torch.evm import transfer as ttr
 from ethproof_tpu_torch.gf import field as tgf
 from ethproof_tpu_torch.stark import multi as tmulti
@@ -33,6 +40,8 @@ from ethproof_tpu_torch.tables import all as tall
 from ethproof_tpu_torch.tables import arithmetic as tar
 from ethproof_tpu_torch.tables import bytepacking as tbp
 from ethproof_tpu_torch.tables import cpu as tcpu
+from ethproof_tpu_torch.tables import keccak as tkc
+from ethproof_tpu_torch.tables import keccak_sponge as tks
 from ethproof_tpu_torch.tables import logic as tlg
 from ethproof_tpu_torch.witness import synthetic
 from test_transfer_e2e import make_transfer_witness
@@ -44,7 +53,10 @@ P = jgf.P
 RATE_BITS = 2
 SHIFT = 7
 NUM_CHALLENGES = 2
-TABLES = ("cpu", "arithmetic", "logic", "bytepacking")
+# table index in tables.all order
+TABLES = {"cpu": 0, "arithmetic": 1, "logic": 2, "bytepacking": 3, "keccak": 5,
+          "keccak_sponge": 6}
+SEVEN = ("keccak", "keccak_sponge")  # their CTLs come from the seven-table wiring
 
 
 def _kernels():
@@ -53,7 +65,18 @@ def _kernels():
     t_pi = ttr.derive_pi_words(synthetic.small_transfer())[0]
     assert t_pi == j_pi
     overlap = jtr.overlap_pattern(s, r, m)
-    return jtr.build_kernel(overlap, None, j_pi), ttr.build_kernel(overlap, t_pi), j_pi
+    return jtr.build_kernel(overlap, None, j_pi), ttr.build_kernel(overlap, None, t_pi), j_pi
+
+
+def _bound_cpus():
+    """(JAX, port) CpuStark of the CPU-tier transfer's kernel with the
+    binding section (levels 3, 10 words per node): a kernel that hashes."""
+    j_pi, s, r, m = jtr.derive_pi_words(make_transfer_witness())
+    overlap = jtr.overlap_pattern(s, r, m)
+    return (jcpu.CpuStark(jtr.build_kernel(overlap, jbd.KernelShape(3, 10)).prog,
+                          jtr.NUM_PI_WORDS),
+            tcpu.CpuStark(ttr.build_kernel(overlap, tbd.KernelShape(3, 10)).prog,
+                          ttr.NUM_PI_WORDS))
 
 
 def _starks(name):
@@ -62,7 +85,8 @@ def _starks(name):
         return (jcpu.CpuStark(j_k.prog, jtr.NUM_PI_WORDS),
                 tcpu.CpuStark(t_k.prog, ttr.NUM_PI_WORDS))
     mod = {"arithmetic": (jar, tar, "ArithmeticStark"), "logic": (jlg, tlg, "LogicStark"),
-           "bytepacking": (jbp, tbp, "BytePackingStark")}[name]
+           "bytepacking": (jbp, tbp, "BytePackingStark"), "keccak": (jkc, tkc, "KeccakStark"),
+           "keccak_sponge": (jks, tks, "KeccakSpongeStark")}[name]
     return getattr(mod[0], mod[2])(), getattr(mod[1], mod[2])()
 
 
@@ -148,7 +172,7 @@ def _ctls():
     j_k, t_k, _ = _kernels()
     j_cpu = jcpu.CpuStark(j_k.prog, jtr.NUM_PI_WORDS)
     t_cpu = tcpu.CpuStark(t_k.prog, ttr.NUM_PI_WORDS)
-    return jall.build_ctls(j_cpu, with_keccak=False), tall.build_ctls(t_cpu)
+    return jall.build_ctls(j_cpu, with_keccak=False), tall.build_ctls(t_cpu, with_keccak=False)
 
 
 def test_ctl_instances_and_labels_equal_reference():
@@ -165,10 +189,27 @@ def test_ctl_instances_and_labels_equal_reference():
         assert got_inst, f"table {t} takes part in no CTL"
 
 
+def _ctls7():
+    j_cpu, t_cpu = _bound_cpus()
+    assert j_cpu.uses_sponge and t_cpu.uses_sponge
+    return jall.build_ctls(j_cpu, with_keccak=True), tall.build_ctls(t_cpu, with_keccak=True)
+
+
 def test_build_ctls_with_keccak_names_the_next_slice():
-    _, t_k, _ = _kernels()
-    with pytest.raises(NotImplementedError, match="seven-table"):
-        tall.build_ctls(tcpu.CpuStark(t_k.prog, ttr.NUM_PI_WORDS), with_keccak=True)
+    """The seven-table wiring of a kernel that hashes: CTLs, instances and
+    labels of every table equal the reference's."""
+    j_ctls, t_ctls = _ctls7()
+    assert len(t_ctls) == 7
+    assert repr(t_ctls) == repr(j_ctls)
+    rng = np.random.default_rng(15)
+    challenges = [tuple(int(v) for v in rng.integers(0, P, size=2, dtype=np.uint64))
+                  for _ in range(NUM_CHALLENGES)]
+    for t in range(7):
+        want_inst, want_labels = jmulti._instances_for_table(t, j_ctls, challenges)
+        got_inst, got_labels = tmulti._instances_for_table(t, t_ctls, challenges)
+        assert got_labels == want_labels
+        assert repr(got_inst) == repr(want_inst)
+        assert got_inst, f"table {t} takes part in no CTL"
 
 
 # -- constraint sweep ----------------------------------------------------------------
@@ -194,11 +235,12 @@ def _reference_sweep(stark, trace, fixed, aux, instances, totals, lookup_alphas,
 @pytest.mark.parametrize("name", TABLES)
 def test_quotient_sweep_equals_reference(monkeypatch, name):
     """Seeded LDE columns (trace, fixed and aux), the table's CTL instances
-    from the five-table wiring, seeded challenges, CTL totals and public
-    inputs: both sweeps give the same accumulators, bit for bit."""
+    from the five-table wiring (the seven-table one for the Keccak pair),
+    seeded challenges, CTL totals and public inputs: both sweeps give the
+    same accumulators, bit for bit."""
     monkeypatch.setattr(jgf, "_inv_jit", jgf._inv_impl)
     j_stark, t_stark = _starks(name)
-    t = TABLES.index(name)  # tables.all order: cpu, arithmetic, logic, bytepacking
+    t = TABLES[name]
     log_n = 5 if name == "cpu" else 4
     m = 1 << (log_n + RATE_BITS)
     rng = np.random.default_rng(20 + t)
@@ -207,7 +249,7 @@ def test_quotient_sweep_equals_reference(monkeypatch, name):
         return rng.integers(0, P, size=shape, dtype=np.uint64)
 
     challenges = [tuple(int(v) for v in rand(2)) for _ in range(NUM_CHALLENGES)]
-    j_ctls, t_ctls = _ctls()
+    j_ctls, t_ctls = _ctls7() if name in SEVEN else _ctls()
     j_inst, _ = jmulti._instances_for_table(t, j_ctls, challenges)
     t_inst, _ = tmulti._instances_for_table(t, t_ctls, challenges)
     lookup_alphas = [int(v) for v in rand(NUM_CHALLENGES)] if t_stark.lookups else []

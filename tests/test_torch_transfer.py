@@ -1,13 +1,16 @@
-"""The five-table transfer proof: the port vs the JAX package, field for field.
+"""The transfer proof: the port vs the JAX package.
 
 The CPU-tier transfer of tests/test_transfer_e2e.py (`make_transfer_witness()`
-with its defaults, `SIZES`, `CFG`) is built with each package's own
-constructors (the port's: `witness.synthetic.small_transfer`). The JAX
-`prove_transfer(..., binding=None)` is made once per run, inside one test:
-every table proof of the port must equal it in every field, under both NTT
-encodings; the port's proof must pass the JAX
-`verify_transfer` (through `interop`) and the port's own, and a flipped
-opening must fail both. Cheaper port-only tests follow.
+with its defaults, `SIZES` for five tables and `SIZES7` for seven, `CFG`) is
+built with each package's own constructors (the port's:
+`witness.synthetic.small_transfer`). Not slow: the port's five- and
+seven-table proofs pass the JAX `verify_transfer` (through `interop`) and the
+port's own, and a flipped opening fails both; the binding modes raise as
+the reference's do. Marked `slow` (the reference's proof takes half an hour
+and more on the CPU): the port's proofs equal the JAX `prove_transfer`'s in
+every field under both NTT encodings, and a proof with the in-circuit
+binding passes the JAX `verify_transfer` while a flipped post state root
+fails its `verify_all_tables`.
 
 As in tests/test_torch_stark.py, the reference's base-field inverse runs
 un-jitted (`_inv_jit` set to `_inv_impl`): the values are identical and
@@ -19,9 +22,13 @@ import copy
 import pytest
 import torch
 
+from ethproof_tpu.evm import binding as jbind
 from ethproof_tpu.evm import transfer as jtr
 from ethproof_tpu.gf import field as jgf
 from ethproof_tpu.stark.multi import MultiProof as JMultiProof
+from ethproof_tpu.tables import all as jall
+from ethproof_tpu.tables.all import TableSizes as JTableSizes
+from ethproof_tpu_torch.evm import binding as tbind
 from ethproof_tpu_torch.evm import transfer as ttr
 from ethproof_tpu_torch.fri.config import FriConfig as TFriConfig
 from ethproof_tpu_torch.fri.config import StarkConfig as TStarkConfig
@@ -30,7 +37,7 @@ from ethproof_tpu_torch.poly import base_dft as tbd
 from ethproof_tpu_torch.tables.all import TableSizes as TTableSizes
 from ethproof_tpu_torch.witness import synthetic
 from test_torch_stark import assert_same, to_reference
-from test_transfer_e2e import CFG, SIZES, make_transfer_witness
+from test_transfer_e2e import CFG, SIZES, SIZES7, make_transfer_witness
 
 # one intra-op thread: the suite runs several pytest workers on few cores
 torch.set_num_threads(1)
@@ -39,18 +46,55 @@ T_CFG = TStarkConfig(num_challenges=2, fri_config=TFriConfig(
     rate_bits=2, cap_height=1, proof_of_work_bits=4, num_query_rounds=12,
     arity_bits=2, final_poly_bits=2))
 T_SIZES = TTableSizes(cpu=5, arithmetic=6, logic=4, bytepacking=9, memory=7, keccak=None)
+T_SIZES7 = TTableSizes(cpu=5, arithmetic=6, logic=4, bytepacking=9, memory=7)
+# the reference's bound-proof test (tests/test_binding.py:143): one account
+# (all parties equal), two trie levels
+BOUND_KW = dict(miner_is_sender=True, recipient_is_sender=True, gas_price=1, sender_bal=30000)
+BOUND_SIZES = dict(cpu=12, arithmetic=16, logic=6, bytepacking=9, memory=14, keccak=8,
+                   keccak_sponge=8)
+
+
+@pytest.fixture
+def four_threads():
+    """The slow tests run alone (--runslow): give the port's proofs four
+    intra-op threads, then restore the suite's one."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(4)
+    yield
+    torch.set_num_threads(prev)
 
 
 def _to_reference_tx(got, j_gi):
     d = tx_proof_to_numpy(got)
+    shape = d["binding_shape"]
     return jtr.TxProof(
         multi=JMultiProof(proofs=[to_reference(p) for p in d["multi"]]),
         pi_words=d["pi_words"], gen_inputs=j_gi,
         sender=d["sender"], recipient=d["recipient"], miner=d["miner"],
+        binding_shape=None if shape is None else jbind.KernelShape(**shape),
     )
 
 
-def test_transfer_proof_equals_reference_and_verifies(monkeypatch):
+@pytest.mark.parametrize("tables", [5, 7])
+def test_transfer_proof_verifies_under_both_verifiers(tables):
+    """The port's CPU-tier proof (five tables, or seven with the Keccak pair
+    and the binding dropped by the cpu < 2^11 pre-guard) passes the
+    reference's host `verify_transfer` and the port's own; a flipped opening
+    in the first table fails both. No reference proof is made."""
+    j_gi = make_transfer_witness()
+    got = ttr.prove_transfer(synthetic.small_transfer(), T_CFG,
+                             T_SIZES if tables == 5 else T_SIZES7, device="cpu")
+    assert len(got.multi.proofs) == tables and got.binding_shape is None
+    assert jtr.verify_transfer(_to_reference_tx(got, j_gi), CFG)
+    assert ttr.verify_transfer(got, T_CFG, device="cpu")
+    bad = copy.deepcopy(got)
+    bad.multi.proofs[0].openings.trace_at_zeta[3, 0] ^= 1
+    assert not ttr.verify_transfer(bad, T_CFG, device="cpu")
+    assert not jtr.verify_transfer(_to_reference_tx(bad, j_gi), CFG)
+
+
+@pytest.mark.slow
+def test_transfer_proof_equals_reference_and_verifies(monkeypatch, four_threads):
     """One test, so that the reference proof is made once per run."""
     monkeypatch.setattr(jgf, "_inv_jit", jgf._inv_impl)
     j_gi = make_transfer_witness()
@@ -96,7 +140,7 @@ def test_tampered_post_balance_is_rejected():
     with pytest.raises(AssertionError):
         from ethproof_tpu_torch.tables.cpu import execute
 
-        kasm = ttr.build_kernel(ttr.overlap_pattern(sender, recipient, miner), pi)
+        kasm = ttr.build_kernel(ttr.overlap_pattern(sender, recipient, miner), None, pi)
         execute(kasm.prog, pi, 1 << T_SIZES.cpu, witness=kasm.witness)
 
 
@@ -106,13 +150,66 @@ def test_pi_words_equal_reference():
     assert ttr.derive_pi_words(synthetic.small_transfer()) == want
 
 
-@pytest.mark.parametrize("binding", ["auto", "require", object()])
-def test_prove_transfer_refuses_what_is_not_ported(binding):
-    gi = synthetic.small_transfer()
-    with pytest.raises(NotImplementedError):
-        ttr.prove_transfer(gi, T_CFG, T_SIZES, binding=binding, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ttr.prove_transfer(gi, T_CFG, TTableSizes(), device="cpu")  # keccak pair on
+@pytest.mark.slow
+def test_seven_table_proof_equals_reference(monkeypatch, four_threads):
+    """The seven-table CPU-tier proof (`SIZES7`, default binding "auto",
+    which the cpu < 2^11 pre-guard drops) equals the reference's table by
+    table, field for field, under both NTT encodings."""
+    monkeypatch.setattr(jgf, "_inv_jit", jgf._inv_impl)
+    want = jtr.prove_transfer(make_transfer_witness(), CFG, SIZES7)
+    assert want.binding_shape is None and len(want.multi.proofs) == 7
+    for encoding in ("i8", "bf16"):
+        monkeypatch.setattr(tbd, "ENCODING", encoding)
+        got = ttr.prove_transfer(synthetic.small_transfer(), T_CFG, T_SIZES7, device="cpu")
+        assert_same(tx_proof_to_numpy(got), tx_proof_to_numpy(want))
+
+
+@pytest.mark.slow
+def test_bound_transfer_passes_reference_verifier(monkeypatch, four_threads):
+    """The port's proof with the in-circuit binding, at the reference
+    test's shape and sizes, passes the reference's `verify_transfer`; with
+    the post state root flipped the reference's `verify_all_tables`
+    rejects it on its own (no host trie check)."""
+    monkeypatch.setattr(jgf, "_inv_jit", jgf._inv_impl)
+    shape = tbind.KernelShape(levels=2, node_words=10)
+    got = ttr.prove_transfer(synthetic.small_transfer(**BOUND_KW), T_CFG,
+                             TTableSizes(**BOUND_SIZES), binding=shape, device="cpu")
+    assert got.binding_shape == shape and len(got.multi.proofs) == 7
+    ref = _to_reference_tx(got, make_transfer_witness(**BOUND_KW))
+    assert jtr.verify_transfer(ref, CFG)
+    cpu = jtr.transfer_cpu_stark(ref.overlap, ref.binding_shape)
+    bad_pi = list(ref.pi_words)
+    bad_pi[jtr.PI_STATE_ROOT_POST] ^= 1
+    assert jall.verify_all_tables(cpu, ref.pi_words, ref.multi, CFG)
+    assert not jall.verify_all_tables(cpu, bad_pi, ref.multi, CFG)
+
+
+MODES = {
+    # (binding, port sizes, reference sizes, the exception both raise)
+    "bad_mode": ("exact", T_SIZES, SIZES, ValueError),
+    "require_without_keccak": ("require", T_SIZES, SIZES, AssertionError),
+    "tight_shape": ("tight", T_SIZES7, SIZES7, None),
+}
+
+
+@pytest.mark.parametrize("case", MODES)
+def test_prove_transfer_refuses_what_is_not_ported(case):
+    """The binding modes that cannot prove raise before any proof, as the
+    reference's do: an unknown mode (ValueError), "require" without the
+    Keccak pair (AssertionError), and a KernelShape the witness does not
+    fit (Unsupported)."""
+    binding, t_sizes, j_sizes, exc = MODES[case]
+    j_binding = t_binding = binding
+    j_exc = t_exc = exc
+    if binding == "tight":  # depth-2 paths do not fit one level
+        j_binding = jbind.KernelShape(levels=1, node_words=10)
+        t_binding = tbind.KernelShape(levels=1, node_words=10)
+        j_exc, t_exc = jbind.Unsupported, tbind.Unsupported
+    with pytest.raises(j_exc):
+        jtr.prove_transfer(make_transfer_witness(), CFG, j_sizes, binding=j_binding)
+    with pytest.raises(t_exc):
+        ttr.prove_transfer(synthetic.small_transfer(), T_CFG, t_sizes, binding=t_binding,
+                           device="cpu")
 
 
 def test_seeded_transfer_fits_the_production_floors():
@@ -130,7 +227,7 @@ def test_seeded_transfer_fits_the_production_floors():
     pi, s, r, m = ttr.derive_pi_words(gi)
     assert pi[ttr.PI_FEE] > pi[ttr.PI_TIP] > 0 and pi[ttr.PI_VALUE] > 10**18
     assert ttr.check_trie_binding(ttr.TxProof(None, pi, gi, s, r, m))
-    kasm = ttr.build_kernel(ttr.overlap_pattern(s, r, m), pi)
+    kasm = ttr.build_kernel(ttr.overlap_pattern(s, r, m), None, pi)
     counts = kernel_counts(kasm.prog, kasm.hash_requests())
     fitted = TTableSizes.fit(CircuitConfig(), counts, with_keccak=False)
     assert fitted.degree_bits(with_keccak=False) == [12, 16, 12, 9, 17]
