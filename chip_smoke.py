@@ -15,42 +15,56 @@ and the script exits non-zero; no phase's failure is caught):
 3. four-step — `best_intt` and `best_coset_lde` of a (28, 2^17) array with
              the kernel against the same with the plain base, on the card;
 4. memory  — a 2^9-row Memory proof made on the card must equal, field for
-             field, the one made by the plain path on the CPU; then a
-             2^17-row MemoryStark proof under `standard_fast_config` (launch
-             counts reset just before it, read just after), verified by the
-             port's host verifier;
+             field, the one made by the plain path on the CPU, once with the
+             IR sweep (the default) and once with `ETHPROOF_SWEEP=eager`;
+             then a 2^17-row MemoryStark proof under `standard_fast_config`
+             (launch counts reset just before it, read just after),
+             verified by the port's host verifier;
 5. small transfer — the five-table transfer proof and the seven-table one
              (`SIZES7` of tests/test_transfer_e2e.py: the Keccak pair on, the
              binding dropped by the cpu < 2^11 pre-guard) at the CPU tier's
              sizes, made on the card under each NTT encoding, must equal the
              CPU plain path's proof field for field, table by table;
-6. transfer — the five-table path of slice 2 at full width: an EIP-1559
-             transfer over a seeded 1,000-account state trie, `prove_transfer`
-             with TableSizes(cpu=12, arithmetic=16, logic=12, bytepacking=9,
-             memory=17, keccak=None) under `standard_fast_config`, with the
-             i8 encoding (launch counts reset just before, read just after),
-             whose sha256 must equal the recorded TRANSFER_DIGEST; then again
-             with the bf16 encoding, whose proof must equal the i8 one field
-             for field;
-7. transfer7 — the main path: the same witness proved by
+6. transfer7 — the transfer path: an EIP-1559 transfer over a seeded
+             1,000-account state trie, proved by
              `prove_transfer(gi, config, CircuitConfig(), binding="require")`,
              the seven-table transfer with the in-circuit state-root binding
              at the sizes the reference fits for it, i8 (launch counts reset
              just before, read just after): seven table proofs, the
              production binding shape, the fitted sizes, the recorded digest
-             TRANSFER7_DIGEST, the port's `verify_transfer`, and a flipped
-             post state root rejected by `verify_all_tables` alone;
-8. census  — both kernels timed at every base-DFT shape the main path's
-             proof launched, beside their bounds, the launch floor and a
-             one-tile call;
-9. result  — one JSON line listing every kernel, the card's name and power
-             limit, and the last line {"ok": true, "device": {...}}.
+             TRANSFER7_DIGEST (every sweep through the IR executor), the
+             port's `verify_transfer`, and a flipped post state root rejected
+             by `verify_all_tables` alone; then the same proof under bf16
+             (counts reset again), which must give the same digest;
+7. contract — the contract-call path: `seeded_erc20_transfer(1000, 1000,
+             5)` (an EIP-1559 ERC-20 `transfer` over a 1,000-account state
+             trie and a 1,000-holder token storage trie) through
+             `runtime.ops.tx_proof(gi, config, CircuitConfig())` (binding
+             "auto"), i8, launch counts reset just before, read just after:
+             the machine's and the binding's multi-proofs at the sizes the
+             reference fits, the production binding shape, the recorded
+             digest CONTRACT_DIGEST, the port's `verify_contract_call`, a
+             forged storage PI word rejected, and a witness with a wrong post
+             state root refused by `tx_proof` (FatalError);
+8. census  — both kernels timed at every base-DFT shape the transfer and
+             contract paths' proofs launched, beside their bounds, the launch
+             floor and a one-tile call;
+9. result  — one JSON line listing every kernel (launches: base_dft's of
+             the contract path's proof, base_dft_bf16's of the transfer
+             path's bf16 proof), the card's name and power limit, and the
+             last line {"ok": true, "device": {...}}.
+
+The full-width five-table transfer of slice 2 is no longer run: the
+five-table path stays driven at the CPU tier's sizes under both encodings
+(phase 5), and the kernels' bits are pinned by TRANSFER7_DIGEST and the
+census.
 
 `python3 chip_smoke.py --profile` instead builds the kernels and profiles
 one 2^17-row Memory proof (device kernels by name, idle share, layer
-times); `python3 chip_smoke.py --memory` proves the main path once and
-prints each phase's seconds and peak device memory. Neither prints a result
-line.
+times); `python3 chip_smoke.py --memory` proves the 2^17-row Memory table
+under each sweep (IR and direct) and the transfer and contract paths once
+each, and prints each phase's seconds and peak device memory.
+Neither prints a result line.
 
 Without a CUDA card, or run outside the repository, it exits non-zero and
 prints no result.
@@ -75,27 +89,35 @@ BF16_OPS_PER_S = 989e12
 
 LOG_ROWS = 17  # MemoryStark floor: DEFAULT_RANGES["memory"] starts at 2^17
 TRACE_COLS = 28
-# the transfer's tables at the floors of the reference's production ranges
-# (ethproof_tpu/runtime/prover_state.py:26-34), without the keccak pair
-TRANSFER_LOGS = dict(cpu=12, arithmetic=16, logic=12, bytepacking=9, memory=17)
 ARITH_COLS = 430  # the arithmetic table: the largest trace of the transfer
 CENSUS_PLAIN_MAX = 1 << 27  # elements up to which the census times the plain versions
 CENSUS_CHECK_ELEMS = 1 << 24  # elements per shape the census checks against the plain versions
 N_ACCOUNTS = 1000
-# sha256 (`proof_digest`) of the full-width transfer's proof (`phase_transfer`'s
-# witness, sizes and config, i8), recorded on an NVIDIA H100 80GB HBM3 (700 W)
-# by a checkout of commit 5308af5, whose kernels predate their tensor-core
-# redesign (`base_dft` on 64-bit multiply-adds, `base_dft_bf16` converting
-# each dot): the kernels may change the time of a proof, never its bits
-TRANSFER_DIGEST = "ad37af5e6b2f2e55dbed414bc56488a97e838d6f3459cb91e8ec56b28e775f03"
+# History: the full-width five-table transfer (TableSizes(12, 16, 12, 9, 17,
+# keccak=None), the transfer7 witness, i8) had the proof digest
+# ad37af5e6b2f2e55dbed414bc56488a97e838d6f3459cb91e8ec56b28e775f03 under the
+# kernels of commit 5308af5 and their tensor-core redesign alike; that run was
+# dropped when the contract path came, and TRANSFER7_DIGEST pins the bits.
 # the seven-table transfer's sizes as the reference's TableSizes.fit gives
 # them for `phase_transfer7`'s witness under the default CircuitConfig ranges
 TRANSFER7_LOGS = dict(cpu=16, arithmetic=16, logic=12, bytepacking=9, memory=17, keccak=14,
                       keccak_sponge=9)
-# sha256 (`proof_digest`) of that proof (i8), recorded on an NVIDIA H100 80GB
-# HBM3 (700 W) by the commit that added it: it pins the bits for later kernel
-# work; it is not a reference check
+# sha256 (`proof_digest`) of that proof (i8, and bf16 alike), recorded on an
+# NVIDIA H100 80GB HBM3 (700 W) by the commit that added it: it pins the bits
+# for later kernel work; it is not a reference check
 TRANSFER7_DIGEST = "91aa11c62fc5069a4337ca142abe4a07a56b49cdbc77ff48c768af686318462f"
+N_HOLDERS = 1000  # the token's balance slots in the contract path's witness
+# the contract path's sizes as the reference fits them for its witness
+# (tests/test_torch_contract.py holds the port's fit equal to the reference's):
+# the machine's multi-proof and the binding's at PRODUCTION_SHAPE
+CONTRACT_LOGS = dict(cpu=10, arithmetic=16, logic=5, bytepacking=9, memory=13, keccak=7,
+                     keccak_sponge=8)
+CONTRACT_BINDING_LOGS = dict(cpu=16, arithmetic=16, logic=10, bytepacking=9, memory=18,
+                             keccak=12, keccak_sponge=8)
+# sha256 (`proof_digest`) of the contract path's proof (the machine's tables,
+# then the binding's), recorded on an NVIDIA H100 80GB HBM3 (700 W) by the
+# commit that added it
+CONTRACT_DIGEST = "5ff06cb2356b2b46c46e913d1a5947010ae356a0970e5f1d7f0fa7e79b82dddb"
 P = 0xFFFFFFFF00000001
 # all-zero data (i8 digits all -128), seven of eight bytes 0xFF (i8 digits
 # +127, bf16 dots at their largest sums), and p - 1
@@ -409,7 +431,10 @@ def phase_four_step() -> None:
 
 
 def phase_small_proof() -> None:
-    """The card's proof of a small trace equals the CPU plain path's."""
+    """The card's proof of a small trace equals the CPU plain path's, with
+    the IR sweep and with the direct one (`ETHPROOF_SWEEP=eager`)."""
+    import os
+
     from ethproof_tpu_torch.fri.config import standard_fast_config
     from ethproof_tpu_torch.interop import proof_to_numpy
     from ethproof_tpu_torch.stark.prove import stark_prove
@@ -417,11 +442,20 @@ def phase_small_proof() -> None:
 
     config = standard_fast_config()
     trace = mem.generate_trace(memory_ops(300, seed=3), 1 << 9)
-    on_card = proof_to_numpy(stark_prove(mem.MemoryStark(), trace, [], config, device="cuda"))
-    on_cpu = proof_to_numpy(stark_prove(mem.MemoryStark(), trace, [], config, device="cpu"))
-    if not same(on_card, on_cpu):
-        raise AssertionError("the card's 2^9-row Memory proof differs from the CPU's")
-    print("[slice] 2^9-row Memory proof: card and CPU plain path agree field for field")
+    for mode in ("ir", "eager"):
+        os.environ["ETHPROOF_SWEEP"] = mode
+        try:
+            on_card = proof_to_numpy(
+                stark_prove(mem.MemoryStark(), trace, [], config, device="cuda"))
+            on_cpu = proof_to_numpy(
+                stark_prove(mem.MemoryStark(), trace, [], config, device="cpu"))
+        finally:
+            os.environ.pop("ETHPROOF_SWEEP")
+        if not same(on_card, on_cpu):
+            raise AssertionError(f"the card's 2^9-row Memory proof differs from the CPU's "
+                                 f"(ETHPROOF_SWEEP={mode})")
+        print(f"[slice] 2^9-row Memory proof, ETHPROOF_SWEEP={mode}: card and CPU plain path "
+              "agree field for field")
 
 
 def reset_launches() -> None:
@@ -474,7 +508,7 @@ def phase_slice(card: str) -> dict:
         raise AssertionError("the Memory path launched no base_dft kernel")
     print(f"[slice] prove 2^{LOG_ROWS} rows on {card}: {wall:.3f} s, launches {launches}, "
           f"peak device memory {peak_gb:.2f} GB")
-    print("[slice] phase seconds " + json.dumps({k: round(v, 4) for k, v in times.items()}))
+    print_phases("[slice] phase seconds:", {"memory": times})
     t0 = time.perf_counter()
     ok = stark_verify(stark, proof, config, device="cuda")
     print(f"[slice] port stark_verify: {ok} in {time.perf_counter() - t0:.2f} s")
@@ -608,8 +642,8 @@ def phase_census(card: str, census: dict) -> None:
         print(f"[census] one 16-row call at n = {n}: base_dft {one_tile['i8', n]:.4f} ms, "
               f"base_dft_bf16 {one_tile['bf16', n]:.4f} ms")
     per_proof = {}
-    print(f"[census] {len(shapes)} shapes, {sum(s[3] for s in shapes)} launches per "
-          f"seven-table transfer proof, on {card}")
+    print(f"[census] {len(shapes)} shapes, {sum(s[3] for s in shapes)} launches in the "
+          f"transfer7 and contract proofs, on {card}")
     for rows, n, inverse, count in shapes:
         log_n = n.bit_length() - 1
         a = torch.randint(0, 1 << 62, (rows, n), dtype=torch.int64, device="cuda")
@@ -645,79 +679,26 @@ def phase_census(card: str, census: dict) -> None:
             raise AssertionError(f"({rows}, {n}) inverse={inverse}: base_dft != base_dft_bf16")
         del a, got
     for name, tot in per_proof.items():
-        print(f"[census] {name} per seven-table transfer proof: {tot['ms']:.3f} ms of kernel "
+        print(f"[census] {name} in the transfer7 and contract proofs: {tot['ms']:.3f} ms of kernel "
               f"time, bound "
               f"{tot['bound_ms']:.3f} ms, launches x (ms - bound) "
               f"{tot['ms'] - tot['bound_ms']:.3f} ms")
 
 
-def phase_transfer(card: str) -> dict:
-    """The five-table path at full width, once per encoding -> the launches
-    of each kernel on its own encoding's run. The i8 proof must have the
-    recorded digest, TRANSFER_DIGEST; the bf16 proof must equal it."""
-    import torch
-
-    from ethproof_tpu_torch.evm.transfer import prove_transfer, verify_transfer
-    from ethproof_tpu_torch.fri.config import standard_fast_config
-    from ethproof_tpu_torch.interop import multi_proof_to_numpy
-    from ethproof_tpu_torch.poly import base_dft as bd
-    from ethproof_tpu_torch.tables.all import TableSizes
-    from ethproof_tpu_torch.witness import synthetic
-
-    t0 = time.perf_counter()
-    gi = synthetic.seeded_transfer(N_ACCOUNTS, seed=5)
-    print(f"[transfer] witness: EIP-1559 transfer over a {N_ACCOUNTS}-account state trie, "
-          f"built in {time.perf_counter() - t0:.2f} s")
-    config = standard_fast_config()
-    sizes = TableSizes(**TRANSFER_LOGS, keccak=None)
-    proofs, launches = {}, {}
-    for encoding in ("i8", "bf16"):
-        bd.ENCODING = encoding
-        times: dict = {}
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        t0 = time.perf_counter()
-        proof = prove_transfer(gi, config, sizes, device="cuda", phase_times=times)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        run = dict(bd.LAUNCHES)
-        kernel = bd.KERNELS[encoding]
-        if run[kernel] <= 0:
-            raise AssertionError(f"the {encoding} transfer proof launched no {kernel} kernel")
-        launches[kernel] = run[kernel]
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        print(f"[transfer] {encoding}: prove_transfer {TRANSFER_LOGS} on {card}: {wall:.3f} s, "
-              f"launches {run}, peak device memory {peak_gb:.2f} GB")
-        print_phases("[transfer] " + encoding, times)
-        proofs[encoding] = multi_proof_to_numpy(proof.multi)
-        if encoding == "i8":
-            digest = proof_digest(proofs["i8"])
-            if digest != TRANSFER_DIGEST:
-                raise AssertionError(f"the i8 transfer proof's digest {digest} differs from the "
-                                     f"recorded proof's ({TRANSFER_DIGEST})")
-            print(f"[transfer] the i8 proof equals the recorded proof (sha256 {digest})")
-            t0 = time.perf_counter()
-            ok = verify_transfer(proof, config, device="cuda")
-            print(f"[transfer] port verify_transfer: {ok} in {time.perf_counter() - t0:.2f} s")
-            if not ok:
-                raise AssertionError("the full-width transfer proof does not verify")
-        del proof
-    for t, (x, y) in enumerate(zip(proofs["bf16"], proofs["i8"])):
-        if not same(x, y):
-            raise AssertionError(f"transfer: table {t}'s bf16 proof differs from the i8 proof")
-    print(f"[transfer] the bf16 proof equals the i8 proof field for field in all "
-          f"{len(proofs['i8'])} tables")
-    bd.ENCODING = "i8"
-    return launches
-
-
 def print_phases(tag: str, times: dict) -> None:
-    """Each table's phase seconds (and peak GB, where measured) and their sum."""
+    """Each table's phase seconds (and peak GB, where measured) and their
+    sum; then each table's IR sweep plan, as the level executor that swept
+    it reported it (`SweepExecutor.plan`: recorded instructions, levels,
+    stacked field ops per pass, peak live rows, domain chunks under
+    ETHPROOF_SWEEP_BUDGET)."""
+    plans = {}
     for table, phases in times.items():
+        plans[table] = phases.get("ir_plan")
+        phases = {k: v for k, v in phases.items() if k != "ir_plan"}
         secs = sum(v for k, v in phases.items() if not k.startswith("GB_"))
         print(f"{tag} {table} " + json.dumps({k: round(v, 4) for k, v in phases.items()})
               + f" sum {secs:.3f} s")
+    print(f"{tag} IR sweep plans " + json.dumps(plans))
 
 
 def transfer7_inputs():
@@ -730,9 +711,9 @@ def transfer7_inputs():
     return gi, standard_fast_config(), time.perf_counter() - t0
 
 
-def prove_transfer7(gi, config, card: str, tag: str):
-    """One main-path proof on the card, i8, launch counts reset just before
-    and read just after -> (proof, launches, census)."""
+def prove_transfer7(gi, config, card: str, tag: str, encoding: str = "i8"):
+    """One main-path proof on the card under `encoding`, launch counts reset
+    just before and read just after -> (proof, launches, census)."""
     import torch
 
     from ethproof_tpu_torch.evm.binding import PRODUCTION_SHAPE
@@ -740,20 +721,23 @@ def prove_transfer7(gi, config, card: str, tag: str):
     from ethproof_tpu_torch.poly import base_dft as bd
     from ethproof_tpu_torch.runtime.prover_state import CircuitConfig
 
-    bd.ENCODING = "i8"
+    bd.ENCODING = encoding
     times: dict = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    proof = prove_transfer(gi, config, CircuitConfig(), binding="require", device="cuda",
-                           phase_times=times)
-    torch.cuda.synchronize()
+    try:
+        proof = prove_transfer(gi, config, CircuitConfig(), binding="require", device="cuda",
+                               phase_times=times)
+        torch.cuda.synchronize()
+    finally:
+        bd.ENCODING = "i8"
     wall = time.perf_counter() - t0
     launches, census = dict(bd.LAUNCHES), dict(bd.CENSUS)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     logs = dict(zip(TRANSFER7_LOGS, (p.degree_bits for p in proof.multi.proofs)))
-    print(f"[{tag}] prove_transfer(CircuitConfig(), binding=\"require\") on {card}: "
+    print(f"[{tag}] prove_transfer(CircuitConfig(), binding=\"require\"), {encoding}, on {card}: "
           f"{wall:.3f} s, fitted log2 sizes {logs}, binding shape {proof.binding_shape}, "
           f"launches {launches}, peak device memory {peak_gb:.2f} GB")
     host = times.get("host", {})
@@ -766,13 +750,18 @@ def prove_transfer7(gi, config, card: str, tag: str):
         raise AssertionError(f"binding shape {proof.binding_shape} != {PRODUCTION_SHAPE}")
     if logs != TRANSFER7_LOGS:
         raise AssertionError(f"fitted sizes {logs} != the reference's {TRANSFER7_LOGS}")
-    if launches["base_dft"] <= 0:
-        raise AssertionError("the main path launched no base_dft kernel")
+    name = {"i8": "base_dft", "bf16": "base_dft_bf16"}[encoding]
+    other = {"i8": "base_dft_bf16", "bf16": "base_dft"}[encoding]
+    if launches[name] <= 0 or launches[other] != 0:
+        raise AssertionError(f"the main path under {encoding} launched {launches}")
     return proof, launches, census
 
 
 def phase_transfer7(card: str):
-    """The main path -> (launches, base-DFT census) of its i8 proof."""
+    """The main path, proved under i8 (digest, verified, a flipped post
+    root rejected) and again under bf16 (the same digest) -> (base_dft
+    launches of the i8 proof, base_dft_bf16 launches of the bf16 proof,
+    base-DFT census of the i8 proof)."""
     import copy
 
     from ethproof_tpu_torch.evm import transfer as tr
@@ -812,6 +801,119 @@ def phase_transfer7(card: str):
               f"{time.perf_counter() - t0:.2f} s")
         if not rejected:
             raise AssertionError(f"a flipped post state root passed verify_all_tables ({name})")
+    del proof, relabelled
+    proof, launches_bf16, _ = prove_transfer7(gi, config, card, "transfer7 bf16", "bf16")
+    digest = proof_digest(multi_proof_to_numpy(proof.multi))
+    print(f"[transfer7 bf16] proof sha256 {digest}")
+    if digest != TRANSFER7_DIGEST:
+        raise AssertionError(f"the seven-table proof under bf16 has digest {digest}, not the "
+                             f"i8 proof's ({TRANSFER7_DIGEST})")
+    return launches["base_dft"], launches_bf16["base_dft_bf16"], census
+
+
+def contract_inputs(tamper_root: bool = False):
+    """(witness, config) of the contract path, and the host seconds of the
+    witness."""
+    from ethproof_tpu_torch.fri.config import standard_fast_config
+    from ethproof_tpu_torch.witness import synthetic
+
+    t0 = time.perf_counter()
+    gi = synthetic.seeded_erc20_transfer(N_ACCOUNTS, N_HOLDERS, seed=5, tamper_root=tamper_root)
+    return gi, standard_fast_config(), time.perf_counter() - t0
+
+
+def prove_contract(gi, config, card: str, tag: str):
+    """One contract-path proof on the card through `runtime.ops.tx_proof`,
+    i8, launch counts reset just before and read just after -> (proof,
+    launches, census)."""
+    import torch
+
+    from ethproof_tpu_torch.evm.binding import PRODUCTION_SHAPE
+    from ethproof_tpu_torch.poly import base_dft as bd
+    from ethproof_tpu_torch.runtime import ops
+    from ethproof_tpu_torch.runtime.prover_state import CircuitConfig
+
+    bd.ENCODING = "i8"
+    times: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    proof = ops.tx_proof(gi, config, CircuitConfig(), device="cuda", phase_times=times)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, census = dict(bd.LAUNCHES), dict(bd.CENSUS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if proof.binding_multi is None:
+        raise AssertionError("the contract path dropped its in-circuit binding")
+    logs = dict(zip(CONTRACT_LOGS, (p.degree_bits for p in proof.multi.proofs)))
+    binding_logs = dict(zip(CONTRACT_BINDING_LOGS,
+                            (p.degree_bits for p in proof.binding_multi.proofs)))
+    print(f"[{tag}] tx_proof(CircuitConfig()) of an ERC-20 transfer on {card}: {wall:.3f} s, "
+          f"machine shape {proof.shape}, binding shape {proof.cb_kshape}, fitted log2 sizes: "
+          f"machine {logs}, binding {binding_logs}; launches {launches}, peak device memory "
+          f"{peak_gb:.2f} GB")
+    host = times.get("host", {})
+    machine_host = times.get("machine", {}).get("host", {})
+    binding_host = times.get("binding", {}).get("host", {})
+    print(f"[{tag}] host seconds {sum(host.values()) + sum(machine_host.values()) + sum(binding_host.values()):.3f}: "
+          + json.dumps({k: round(v, 4) for k, v in host.items()})
+          + " machine trace generators " + json.dumps({k: round(v, 4) for k, v in machine_host.items()})
+          + " binding kernel and trace generators "
+          + json.dumps({k: round(v, 4) for k, v in binding_host.items()}))
+    for part in ("machine", "binding"):
+        print_phases(f"[{tag}] {part}", {k: v for k, v in times.get(part, {}).items()
+                                         if k != "host"})
+    if proof.cb_kshape != PRODUCTION_SHAPE:
+        raise AssertionError(f"binding shape {proof.cb_kshape} != {PRODUCTION_SHAPE}")
+    if (logs, binding_logs) != (CONTRACT_LOGS, CONTRACT_BINDING_LOGS):
+        raise AssertionError(f"fitted sizes {logs}, {binding_logs} != the reference's "
+                             f"{CONTRACT_LOGS}, {CONTRACT_BINDING_LOGS}")
+    if launches["base_dft"] <= 0:
+        raise AssertionError("the contract path launched no base_dft kernel")
+    return proof, launches, census
+
+
+def phase_contract(card: str):
+    """The contract path -> (launches, base-DFT census) of its i8 proof."""
+    from ethproof_tpu_torch.evm import contract
+    from ethproof_tpu_torch.interop import multi_proof_to_numpy
+    from ethproof_tpu_torch.runtime import ops
+    from ethproof_tpu_torch.runtime.prover_state import CircuitConfig
+
+    gi, config, witness_s = contract_inputs()
+    print(f"[contract] witness: EIP-1559 ERC-20 transfer over a {N_ACCOUNTS}-account state "
+          f"trie and a {N_HOLDERS}-holder token storage trie, built in {witness_s:.2f} s")
+    proof, launches, census = prove_contract(gi, config, card, "contract")
+    digest = proof_digest(multi_proof_to_numpy(proof.multi)
+                          + multi_proof_to_numpy(proof.binding_multi))
+    print(f"[contract] proof sha256 {digest}")
+    if digest != CONTRACT_DIGEST:
+        raise AssertionError(f"the contract proof's digest {digest} differs from the recorded "
+                             f"proof's ({CONTRACT_DIGEST})")
+    t0 = time.perf_counter()
+    ok = contract.verify_contract_call(proof, config, device="cuda")
+    print(f"[contract] port verify_contract_call: {ok} in {time.perf_counter() - t0:.2f} s")
+    if not ok:
+        raise AssertionError("the contract-call proof does not verify")
+    word = proof.shape.pi_layout["storage"] + 7  # the second slot's post value
+    proof.machine_pi[word] += 1
+    t0 = time.perf_counter()
+    rejected = not contract.verify_contract_call(proof, config, device="cuda")
+    print(f"[contract] verify_contract_call with storage PI word {word} forged: "
+          f"{'rejected' if rejected else 'ACCEPTED'} in {time.perf_counter() - t0:.2f} s")
+    if not rejected:
+        raise AssertionError("a forged storage PI word passed verify_contract_call")
+    del proof
+    bad, _, _ = contract_inputs(tamper_root=True)
+    t0 = time.perf_counter()
+    try:
+        ops.tx_proof(bad, config, CircuitConfig(), device="cuda")
+    except ops.FatalError as e:
+        print(f"[contract] tx_proof of the witness with a wrong post state root: FatalError "
+              f"({e}) in {time.perf_counter() - t0:.2f} s")
+    else:
+        raise AssertionError("tx_proof proved a witness with a wrong post state root")
     return launches, census
 
 
@@ -876,15 +978,20 @@ def phase_profile(card: str) -> None:
 
 
 def phase_memory(card: str) -> None:
-    """Seconds and peak device memory of every phase of the main path's
-    proof (each phase's peak counted from its own start)."""
+    """Seconds and peak device memory of every phase of the 2^17-row Memory
+    proof under each sweep (the IR executor, then the direct evaluation)
+    and of the transfer and contract paths' proofs (each phase's peak
+    counted from its own start)."""
     import contextlib
+    import os
 
     import torch
 
-    from ethproof_tpu_torch.interop import multi_proof_to_numpy
+    from ethproof_tpu_torch.fri.config import standard_fast_config
+    from ethproof_tpu_torch.interop import multi_proof_to_numpy, proof_to_numpy
     from ethproof_tpu_torch.runtime import tracing
     from ethproof_tpu_torch.stark import multi, prove
+    from ethproof_tpu_torch.tables import memory as mem
 
     timed_phase = tracing.phase
 
@@ -899,10 +1006,30 @@ def phase_memory(card: str) -> None:
             times["GB_" + name] = max(times.get("GB_" + name, 0.0), peak)
 
     prove.phase = multi.phase = phase_with_peak
+    n = 1 << LOG_ROWS
+    trace = mem.generate_trace(memory_ops(n - 1000, seed=4), n)
+    for mode in ("ir", "eager"):
+        os.environ["ETHPROOF_SWEEP"] = mode
+        times: dict = {}
+        try:
+            proof = prove.stark_prove(mem.MemoryStark(), trace, [], standard_fast_config(),
+                                      device="cuda", phase_times=times)
+        finally:
+            os.environ.pop("ETHPROOF_SWEEP")
+        print_phases(f"[memory] MemoryStark 2^{LOG_ROWS}, ETHPROOF_SWEEP={mode}:",
+                     {"memory": times})
+        print(f"[memory] MemoryStark 2^{LOG_ROWS}, ETHPROOF_SWEEP={mode}: proof sha256 "
+              f"{proof_digest([proof_to_numpy(proof)])}")
+        del proof
     gi, config, _ = transfer7_inputs()
     proof, _, _ = prove_transfer7(gi, config, card, "memory")
+    print(f"[memory] transfer7 proof sha256 {proof_digest(multi_proof_to_numpy(proof.multi))}")
+    del proof
+    gi, config, _ = contract_inputs()
+    proof, _, _ = prove_contract(gi, config, card, "memory")
     prove.phase = multi.phase = timed_phase
-    print(f"[memory] proof sha256 {proof_digest(multi_proof_to_numpy(proof.multi))}")
+    print(f"[memory] contract proof sha256 "
+          f"{proof_digest(multi_proof_to_numpy(proof.multi) + multi_proof_to_numpy(proof.binding_multi))}")
 
 
 def main() -> int:
@@ -956,10 +1083,15 @@ def main() -> int:
         run("small_proof", phase_small_proof)
         run("memory_2^17", phase_slice, card)
         run("small_transfer", phase_small_transfer, on_cpu)
-    launches = run("transfer", phase_transfer, card)
-    main_launches, census = run("transfer7", phase_transfer7, card)
-    launches["base_dft"] = main_launches["base_dft"]
+    _, bf16_launches, transfer_census = run("transfer7", phase_transfer7, card)
+    launches, contract_census = run("contract", phase_contract, card)
+    census = dict(transfer_census)
+    for shape, count in contract_census.items():
+        census[shape] = census.get(shape, 0) + count
     run("census", phase_census, card, census)
+    # base_dft: the contract path's i8 proof; base_dft_bf16: the seven-table
+    # transfer's bf16 proof
+    launches["base_dft_bf16"] = bf16_launches
     for report in reports:
         report["launches"] = launches[report["name"]]
     print(json.dumps({"kernels": reports}))

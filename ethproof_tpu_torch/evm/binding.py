@@ -1,14 +1,7 @@
 """In-circuit MPT witness binding: the kernel verifies the state-root
 transition itself.
 
-Counterpart: ethproof_tpu/evm/binding.py:1 (a copy of what a transfer's
-kernel reaches: `Unsupported`, `KernelShape`, `PRODUCTION_SHAPE`, `PathInfo`,
-`walk_path`, `UpdateWitness`, `PiBinding`, `build_update_witness`,
-`_check_same_shape`, `BindingWitness`, `build_binding_witness`,
-`BindingEmitter`'s header, item, node, interior, leaf, path-pair, `update`
-and `gather_leaf` gadgets, `region_words_needed` and `emit_binding`). The
-storage-slot parts (`encode_slot_value`, `build_slot_update_witness`,
-`leaf_slot`, `slot_update`) serve contract calls and come with them.
+Counterpart: ethproof_tpu/evm/binding.py:1 (a copy).
 
 Reference equivalent: evm_arithmetization's kernel MPT routines — the asm
 kernel walks/updates tries in kernel memory, hashing nodes through the
@@ -51,9 +44,10 @@ via derive_pi_words until address hashing moves in-circuit.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
+from ..hash.keccak import keccak256
 from ..tables.keccak_sponge import RATE_BYTES
 from ..trie.nibbles import Nibbles
 from ..trie.trie import Branch, Extension, Hash, Leaf, PartialTrie, _node_rlp_encoded
@@ -187,6 +181,13 @@ def build_update_witness(
     )
 
 
+def encode_slot_value(v: int) -> bytes:
+    """Storage-trie leaf value: RLP(minimal big-endian uint)."""
+    from ..trie import rlp
+
+    return rlp.encode(rlp.int_to_bytes(v))
+
+
 def _check_same_shape(pre: PathInfo, post: PathInfo, shape: KernelShape) -> None:
     if len(pre.nodes) != len(post.nodes) or pre.is_branch != post.is_branch:
         raise Unsupported("update restructures the trie")
@@ -197,6 +198,29 @@ def _check_same_shape(pre: PathInfo, post: PathInfo, shape: KernelShape) -> None
     for n in pre.nodes + post.nodes:
         if len(n) > shape.max_node_bytes:
             raise Unsupported(f"node of {len(n)}B exceeds shape capacity")
+
+
+def build_slot_update_witness(
+    strie: PartialTrie, key: Nibbles, new_value: int, shape: KernelShape
+) -> Tuple[UpdateWitness, PartialTrie]:
+    """Witness for one storage-slot value update; returns the post trie
+    for chaining. Raises Unsupported outside the envelope (absent slot,
+    deletion — both restructure the trie)."""
+    if strie.get(key) is None:
+        raise Unsupported("slot does not exist pre-state")
+    if new_value == 0:
+        raise Unsupported("slot deletion restructures the trie")
+    pre = walk_path(strie, key)
+    post_trie = strie.copy()
+    post_trie.insert(key, encode_slot_value(new_value))
+    post = walk_path(post_trie, key)
+    _check_same_shape(pre, post, shape)
+    return (
+        UpdateWitness(
+            pre=pre, post=post, root_pre=strie.hash(), root_post=post_trie.hash()
+        ),
+        post_trie,
+    )
 
 
 @dataclass
@@ -237,6 +261,16 @@ class _LeafFields:
     chash: int
     hp_x: int  # first 32 hexprefix-item bytes (LE) for key-suffix compare
     hp_total: int  # hexprefix item size incl. its header byte
+    hp_b32: int
+    hp_b33: int
+    hdr: int
+
+
+@dataclass
+class _SlotFields:
+    val: int  # the slot's uint256 value
+    hp_x: int
+    hp_total: int
     hp_b32: int
     hp_b33: int
     hdr: int
@@ -467,6 +501,44 @@ class BindingEmitter:
             hp_x=hp_x, hp_total=t1, hp_b32=hp_b32, hp_b33=hp_b33, hdr=hdr,
         )
 
+    def leaf_slot(self, base: int, L: int, gate: int) -> "_SlotFields":
+        """Parse a STORAGE-trie leaf (gated): outer 2-list [hexprefix,
+        value-string] where the value string's content is itself
+        RLP(uint256). Returns (value, key-suffix fields)."""
+        k = self.k
+        one = self.c(1)
+        _payload, hdr, is_f9 = self._list_header(base, L, gate)
+        # slot leaves are < 256 bytes (33B suffix + 34B value)
+        k.gassert0(gate, is_f9)
+        t1, c1off, c1len, hb1, single1 = self._string_item(base, hdr)
+        fb = k.byte_at(base, c1off)
+        flag = k.div(fb, self.c(16))
+        k.gassert0(gate, k.sub(k.lt(one, flag), one))  # flag in {2,3}
+        k.gassert0(gate, k.sub(k.lt(flag, self.c(4)), one))
+        k.gassert0(gate, k.sub(k.lt(c1len, self.c(34)), one))
+        k.gassert0(
+            k.mul(k.mul(gate, k.sub(one, single1)), k.eq(c1len, one)),
+            k.sub(k.lt(self.c(0x7F), fb), one),
+        )
+        hp_x = k.extract(base, hdr, 32)
+        hp_b32 = k.byte_at(base, k.add(hdr, self.c(32)))
+        hp_b33 = k.byte_at(base, k.add(hdr, self.c(33)))
+        v_off = k.add(hdr, t1)
+        t2, c2off, c2len, hb2, single2 = self._string_item(base, v_off)
+        k.gassert0(gate, k.sub(k.lt(c2len, self.c(34)), one))
+        k.gassert0(
+            k.mul(k.mul(gate, k.sub(one, single2)), k.eq(c2len, one)),
+            k.sub(k.lt(self.c(0x7F), hb2), one),
+        )
+        # the string's content is RLP(uint256); it must tile exactly
+        val, p_end = self._int_item(base, c2off, 32, gate)
+        k.gassert_eq(gate, p_end, k.add(c2off, c2len))
+        k.gassert_eq(gate, k.add(v_off, t2), L)
+        return _SlotFields(
+            val=val, hp_x=hp_x, hp_total=t1, hp_b32=hp_b32, hp_b33=hp_b33,
+            hdr=hdr,
+        )
+
     def _int_item(self, base: int, off: int, max_len: int, gate: int):
         """RLP unsigned integer item -> (value_reg, next_off). Canonical:
         single byte < 0x80 encodes itself; otherwise 0x80+len with no
@@ -623,6 +695,40 @@ class BindingEmitter:
         else:
             k.assert_eq(f_pre.sroot, pi(pib.sroot_pre_pi))
             k.assert_eq(f_post.sroot, pi(pib.sroot_post_pi))
+
+    def slot_update(
+        self,
+        uw: Optional[UpdateWitness],
+        root_in: int,
+        root_out: int,
+        vpre_pi: int,
+        vpost_pi: int,
+        pi_words: Optional[List[int]],
+    ) -> None:
+        """Emit one STORAGE-slot update: path pair in the storage trie
+        with slot-leaf parsing, value pre/post bound to PI words.
+
+        Same envelope tier as accounts: the path's identity (nibbles ==
+        keccak(slot key)) stays host-checked; the slot must exist in both
+        tries with the same shape (no insert/delete restructuring —
+        zeroing a slot deletes its leaf and falls back to host binding).
+        """
+        k = self.k
+        one = self.c(1)
+        leaf_pre, leaf_post, Lf_pre, Lf_post = self._path_pair(
+            uw, root_in, root_out
+        )
+        f_pre = self.leaf_slot(leaf_pre, Lf_pre, one)
+        f_post = self.leaf_slot(leaf_post, Lf_post, one)
+        self._same_suffix(f_pre, f_post)
+
+        def pi(word: int) -> int:
+            return k.load_pi(
+                word, pi_words[word] if pi_words is not None else None
+            )
+
+        k.assert_eq(f_pre.val, pi(vpre_pi))
+        k.assert_eq(f_post.val, pi(vpost_pi))
 
     # leaf gather -------------------------------------------------------------
 

@@ -186,6 +186,13 @@ def fri_verify(
         acc: Ext = (0, 0)
         for c in reversed(proof.final_poly):
             acc = ext_add(ext_mul(acc, (x, 0)), (int(c[0]), int(c[1])))
-        if acc != prev_fold:
+        if not arities:
+            # no folding round (degree_bits <= final_poly_bits): the final
+            # polynomial is the whole codeword's, and its value at the query
+            # is what the caller checks against the oracles' openings (the
+            # counterpart compares it with an absent fold and rejects every
+            # such proof)
+            first_openings.append((i0, acc))
+        elif acc != prev_fold:
             return False, []
     return True, first_openings

@@ -10,13 +10,18 @@ such dict per table of a `MultiProof` (ethproof_tpu/stark/multi.py:46);
 `tx_proof_to_numpy` adds the statement of a transfer's `TxProof`
 (ethproof_tpu/evm/transfer.py:216): its PI words, the three parties and
 the binding shape (`{"levels", "node_words"}` of its `KernelShape`, or None
-for a host-checked binding).
+for a host-checked binding). `contract_call_to_numpy` gives the fields of a
+`ContractCallProof` (ethproof_tpu/evm/contract.py:87): the machine's and
+the binding's multi-proofs, the inner frames', the machine's shape
+(`dataclasses.asdict` of its `EvmShape`) and statement, and the binding's
+statement (`cb_pi`, `cb_n_slots`, `cb_kshape` as above).
 The witness is not converted: a caller rebuilds it with either package's
 constructors. Uses numpy only.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -73,6 +78,12 @@ def multi_proof_to_numpy(multi) -> List[Dict[str, Any]]:
     return [proof_to_numpy(p) for p in multi.proofs]
 
 
+def _kshape(shape) -> Optional[Dict[str, int]]:
+    if shape is None:
+        return None
+    return {"levels": int(shape.levels), "node_words": int(shape.node_words)}
+
+
 def tx_proof_to_numpy(tx) -> Dict[str, Any]:
     return {
         "multi": multi_proof_to_numpy(tx.multi),
@@ -80,8 +91,29 @@ def tx_proof_to_numpy(tx) -> Dict[str, Any]:
         "sender": bytes(tx.sender),
         "recipient": bytes(tx.recipient),
         "miner": bytes(tx.miner),
-        "binding_shape": (
-            None if tx.binding_shape is None
-            else {"levels": int(tx.binding_shape.levels),
-                  "node_words": int(tx.binding_shape.node_words)}),
+        "binding_shape": _kshape(tx.binding_shape),
+    }
+
+
+def contract_call_to_numpy(proof) -> Dict[str, Any]:
+    def multi(m):
+        return None if m is None else multi_proof_to_numpy(m)
+
+    return {
+        "multi": multi(proof.multi),
+        "shape": dataclasses.asdict(proof.shape),
+        "machine_pi": [int(w) for w in proof.machine_pi],
+        "sender": bytes(proof.sender),
+        "to": bytes(proof.to),
+        "miner": bytes(proof.miner),
+        "gas_used": int(proof.gas_used),
+        "binding_multi": multi(proof.binding_multi),
+        "cb_pi": None if proof.cb_pi is None else [int(w) for w in proof.cb_pi],
+        "cb_n_slots": int(proof.cb_n_slots),
+        "cb_kshape": _kshape(proof.cb_kshape),
+        "inner_frames": [
+            {"address": bytes(f.address), "shape": dataclasses.asdict(f.shape),
+             "machine_pi": [int(w) for w in f.machine_pi], "multi": multi(f.multi)}
+            for f in proof.inner_frames or []
+        ],
     }

@@ -8,11 +8,12 @@ Counterpart: ethproof_tpu/stark/prove.py:62-659 and :846-1052
 
 Every array that spans the trace or LDE domain is an int64 tensor on one
 device; the transcript runs on the host. What differs from the counterpart:
-- the constraint sweep is the direct evaluation of `stark.eval` on the
-  torch `DeviceOps` (the counterpart's `_sweep_jit(..., use_jit=False)`
-  path, :735-843); its accumulators equal the IR executor's, since field
-  arithmetic is exact. The IR executor (ethproof_tpu/stark/ir.py) is not
-  ported yet;
+- the constraint sweep (`ETHPROOF_SWEEP`, counterpart :662-733) replays
+  the recorded IR program on the level executor of `stark/ir.py` ("ir",
+  the default), or evaluates `stark.eval` directly on the torch
+  `DeviceOps` ("eager", the counterpart's `_sweep_jit(..., use_jit=False)`
+  path, :735-843, kept as the tests' oracle); the two give equal
+  accumulators, since field arithmetic is exact. There is no "jit" mode;
 - `lax.associative_scan` becomes a log-depth (Hillis-Steele) scan under
   field mul or add;
 - `fixed_cap` keeps only the in-memory cache: no artifact directory, no
@@ -315,7 +316,8 @@ def stark_prove(
     """Prove `trace` satisfies `stark` on `device` (None: the CUDA card).
 
     `phase_times`, when given, receives the seconds of the commit, aux,
-    quotient, openings and deep_fri phases."""
+    quotient, openings and deep_fri phases, and under the IR sweep the
+    level executor's plan as "ir_plan" (`SweepExecutor.plan`)."""
     dev = resolve_device(device)
     fri_cfg = config.fri_config
     cols, n = trace.shape
@@ -379,6 +381,7 @@ def stark_prove(
             stark, trace_lde, aux_lde, instances, ctl_totals, lookup_alphas,
             public_inputs, alphas, log_n, rate_bits, shift, fri_cfg,
             fixed_lde=fixed_cm.lde if fixed_cm is not None else None,
+            plan=phase_times,
         )
         quotient_cap = gfp.to_u64(quotient_tree.cap)
     challenger.observe_cap(quotient_cap)
@@ -427,14 +430,20 @@ def stark_prove(
     return proof
 
 
-def _sweep(stark, trace_lde, fixed_lde, aux_lde, instances, ctl_totals, lookup_alphas,
-           public_inputs, alphas, log_n, rate_bits, shift) -> List[torch.Tensor]:
-    """Direct evaluation of the table's eval (+ CTL and lookup constraints)
-    over the whole LDE domain -> one accumulator per alpha."""
-    dev = trace_lde.device
+def _sweep_mode() -> str:
+    """ETHPROOF_SWEEP: "ir" (default) or "eager" (see the module docstring)."""
+    import os
+
+    mode = os.environ.get("ETHPROOF_SWEEP", "ir")
+    if mode not in ("ir", "eager"):
+        raise ValueError(f"ETHPROOF_SWEEP={mode!r}: expected 'ir' or 'eager'")
+    return mode
+
+
+def _selectors(log_n, rate_bits, shift, dev) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(z_last, l_first, l_last) over the LDE domain."""
     n = 1 << log_n
     m = n << rate_bits
-    rate = 1 << rate_bits
     xs = _domain_points(log_n + rate_bits, shift, dev)
     zh = _zh_short(log_n, rate_bits, shift, dev).repeat(m >> rate_bits)
     g_last = fh.inv(fh.primitive_root_of_unity(log_n))
@@ -442,6 +451,62 @@ def _sweep(stark, trace_lde, fixed_lde, aux_lde, instances, ctl_totals, lookup_a
     z_last = gfp.sub(xs, gfp.full((), g_last, dev))
     l_first = gfp.mul_const(gfp.mul(zh, gfp.inv(gfp.sub(xs, gfp.ones((), dev)))), n_inv)
     l_last = gfp.mul_const(gfp.mul(zh, gfp.inv(z_last)), g_last * n_inv % P)
+    return z_last, l_first, l_last
+
+
+def ir_executor(stark, specs, num_challenges: int, n_lookup_alphas: int, has_aux: bool):
+    """The level executor of the table's recorded sweep program, cached on
+    the stark instance by STRUCTURE only: one recording serves every shape
+    and every proof (counterpart :691-704)."""
+    from .ir import SweepExecutor, sweep_program
+
+    cache = stark.__dict__.setdefault("_torch_ir_exec_cache", {})
+    key = (hash(repr(specs)), num_challenges, n_lookup_alphas, has_aux)
+    ex = cache.get(key)
+    if ex is None:
+        prog = sweep_program(stark, specs, num_challenges, n_lookup_alphas, has_aux)
+        ex = cache[key] = SweepExecutor(prog)
+    return ex
+
+
+def _ir_sweep(stark, trace_lde, fixed_lde, aux_lde, instances, ctl_totals, lookup_alphas,
+              public_inputs, alphas, log_n, rate_bits, shift, plan=None) -> torch.Tensor:
+    """Constraint sweep by the recorded IR (stark/ir.py) on the level
+    executor -> (num_challenges, m) accumulators. The executor's input rows
+    are built one domain chunk at a time: local rows, then next rows (the
+    chunk's columns shifted by the rate), per oracle. `plan`, when given,
+    receives the executor's plan of this run as "ir_plan"."""
+    dev = trace_lde.device
+    m = trace_lde.shape[-1]
+    rate = 1 << rate_bits
+    ex = ir_executor(stark, tuple(inst.spec for inst in instances), len(alphas),
+                     len(lookup_alphas), aux_lde is not None)
+    parts = [p for p in (trace_lde, fixed_lde, aux_lde) if p is not None]
+
+    def head(lo, hi):
+        nxt = torch.arange(lo + rate, hi + rate, device=dev) % m
+        return torch.cat([t for p in parts for t in (p[:, lo:hi], p.index_select(1, nxt))])
+
+    scalars = (list(public_inputs) + list(alphas) + list(lookup_alphas)
+               + [inst.beta for inst in instances] + [inst.gamma for inst in instances]
+               + list(ctl_totals))
+    scal = gfp.from_u64(np.asarray([int(v) % P for v in scalars], dtype=np.uint64), dev)
+    tail = torch.stack(_selectors(log_n, rate_bits, shift, dev))
+    accs = ex.run(head, scal, tail)
+    if plan is not None:
+        plan["ir_plan"] = ex.plan()
+    return accs
+
+
+def _sweep(stark, trace_lde, fixed_lde, aux_lde, instances, ctl_totals, lookup_alphas,
+           public_inputs, alphas, log_n, rate_bits, shift, plan=None) -> torch.Tensor:
+    """Direct evaluation of the table's eval (+ CTL and lookup constraints)
+    over the whole LDE domain -> (num_challenges, m) accumulators. It has
+    no plan to report: `plan` is left as it is."""
+    dev = trace_lde.device
+    m = trace_lde.shape[-1]
+    rate = 1 << rate_bits
+    z_last, l_first, l_last = _selectors(log_n, rate_bits, shift, dev)
 
     ops = DeviceOps((m,), dev)
     local = list(trace_lde)
@@ -473,22 +538,23 @@ def _sweep(stark, trace_lde, fixed_lde, aux_lde, instances, ctl_totals, lookup_a
                     aux_local[off : off + w], aux_next[off : off + w], spec, alpha,
                 )
                 off += w
-    return consumer.accs
+    return torch.stack(consumer.accs)
 
 
 def _compute_quotient(stark, trace_lde, aux_lde, instances, ctl_totals, lookup_alphas,
                       public_inputs, alphas, log_n, rate_bits, shift, fri_cfg,
-                      fixed_lde=None):
+                      fixed_lde=None, plan=None):
     n = 1 << log_n
     dev = trace_lde.device
     if stark.num_fixed_columns:
         assert fixed_lde is not None, "fixed tables must pass the committed LDE"
-    accs = _sweep(stark, trace_lde, fixed_lde if stark.num_fixed_columns else None, aux_lde,
-                  instances, ctl_totals, lookup_alphas, public_inputs, alphas,
-                  log_n, rate_bits, shift)
+    sweep = {"ir": _ir_sweep, "eager": _sweep}[_sweep_mode()]
+    accs = sweep(stark, trace_lde, fixed_lde if stark.num_fixed_columns else None, aux_lde,
+                 instances, ctl_totals, lookup_alphas, public_inputs, alphas,
+                 log_n, rate_bits, shift, plan)
     m = n << rate_bits
     zh_inv = gfp.inv(_zh_short(log_n, rate_bits, shift, dev)).repeat(m >> rate_bits)
-    q_evals = gfp.mul(torch.stack(accs), zh_inv)  # (num_challenges, m)
+    q_evals = gfp.mul(accs, zh_inv)  # (num_challenges, m)
     q_coeffs = four_step.best_coset_intt(q_evals, shift)
     chunks = stark.quotient_chunks(bool(instances))
     q_chunks = q_coeffs[:, : chunks * n].reshape(len(accs) * chunks, n)

@@ -1,9 +1,10 @@
 """STARK verifier — host-side, exact python-int arithmetic.
 
-Counterpart: ethproof_tpu/stark/verify.py:1. A copy, except that the
-constraint identity at zeta runs the table's `eval` directly on host
-extension scalars (the counterpart replays the recorded IR program, which
-evaluates the same expression), the fixed-column cap comes from the
+Counterpart: ethproof_tpu/stark/verify.py:1. A copy: the constraint
+identity at zeta replays the recorded IR program on host extension pairs,
+as the counterpart does (:154-159), whatever sweep the prover ran
+(`_direct_accs` runs the table's `eval` directly, the same expression; the
+tests hold the two against each other); the fixed-column cap comes from the
 port's own commitment on `device`, and the opened leaves of each oracle
 tree are digested in one batch on `device` (the same `tree_digest` as the
 host's, one call for all queries: a wide table's leaves are thousands of
@@ -36,6 +37,7 @@ from ..hash import poseidon
 from ..fri.challenger import Challenger
 from ..fri.config import StarkConfig
 from ..fri.verify import _verify_merkle, ext_add, ext_mul, ext_sub, fri_verify
+from .ir import replay_accs
 from .prove import StarkProof
 from .stark import (
     ConstraintConsumer,
@@ -79,6 +81,49 @@ def _leaf_digests(values: np.ndarray, device) -> List[List[int]]:
     in one batch on `device`."""
     d = gfp.to_u64(poseidon.tree_digest(gfp.from_u64(np.ascontiguousarray(values.T), device)))
     return [[int(v) for v in d[:, q]] for q in range(values.shape[0])]
+
+
+def _replay_accs(stark, ops, instances, ctl_totals, lookup_alphas, alphas, local, nxt,
+                 fixed_l, fixed_n, aux_l, aux_n, pis, z_last, l_first, l_last) -> List[Ext]:
+    """The constraint accumulators at zeta by replaying the SAME recorded
+    constraint program the prover swept."""
+    return replay_accs(
+        stark, tuple(inst.spec for inst in instances), ops, len(alphas),
+        local=local, nxt=nxt, fixed_l=fixed_l, fixed_n=fixed_n,
+        aux_l=aux_l, aux_n=aux_n, pis=pis,
+        alphas=[ops.challenge(a) for a in alphas],
+        lookup_alphas=[ops.challenge(a) for a in lookup_alphas],
+        aux_challenges=[],
+        betas=[ops.challenge(inst.beta) for inst in instances],
+        gammas=[ops.challenge(inst.gamma) for inst in instances],
+        totals=[ops.challenge(t) for t in ctl_totals],
+        z_last=z_last, l_first=l_first, l_last=l_last,
+    )
+
+
+def _direct_accs(stark, ops, instances, ctl_totals, lookup_alphas, alphas, local, nxt,
+                 fixed_l, fixed_n, aux_l, aux_n, pis, z_last, l_first, l_last) -> List[Ext]:
+    """The constraint accumulators at zeta by running `eval` (+ the CTL and
+    lookup constraints) directly on host extension pairs."""
+    consumer = ConstraintConsumer(ops, alphas, z_last, l_first, l_last)
+    ctx = EvalContext(ops, local, nxt, pis, consumer, fixed_l, fixed_n)
+    stark.eval(ctx)
+    k_ctl = len(instances)
+    if instances:
+        eval_ctl_constraints(
+            ops, consumer, local + fixed_l, nxt + fixed_n,
+            aux_l[:k_ctl], aux_n[:k_ctl], instances, list(ctl_totals),
+        )
+    off = k_ctl
+    for spec in stark.lookups:
+        for alpha in lookup_alphas:
+            w = lookup_aux_count(spec)
+            eval_lookup_constraints(
+                ops, consumer, local + fixed_l, nxt + fixed_n,
+                aux_l[off : off + w], aux_n[off : off + w], spec, alpha,
+            )
+            off += w
+    return consumer.accs
 
 
 def stark_verify(
@@ -175,25 +220,9 @@ def stark_verify(
     fixed_nx: List[Ext] = _pairs(o.fixed_at_gzeta)
     pis = [ops.constant(int(x)) for x in proof.public_inputs]
     aux_l, aux_n = _pairs(o.aux_at_zeta), _pairs(o.aux_at_gzeta)
-    consumer = ConstraintConsumer(ops, alphas, z_last, l_first, l_last)
-    ctx = EvalContext(ops, local, nxt, pis, consumer, fixed_l, fixed_nx)
-    stark.eval(ctx)
-    if k_aux:
-        if instances:
-            eval_ctl_constraints(
-                ops, consumer, local + fixed_l, nxt + fixed_nx,
-                aux_l[:k_ctl], aux_n[:k_ctl], instances, list(proof.ctl_totals),
-            )
-        off = k_ctl
-        for spec in stark.lookups:
-            for alpha in lookup_alphas:
-                w = lookup_aux_count(spec)
-                eval_lookup_constraints(
-                    ops, consumer, local + fixed_l, nxt + fixed_nx,
-                    aux_l[off : off + w], aux_n[off : off + w], spec, alpha,
-                )
-                off += w
-    accs = consumer.accs
+    accs = _replay_accs(stark, ops, instances, proof.ctl_totals, lookup_alphas, alphas,
+                        local, nxt, fixed_l, fixed_nx, aux_l, aux_n, pis,
+                        z_last, l_first, l_last)
     for ai in range(config.num_challenges):
         q: Ext = (0, 0)
         zpow: Ext = (1, 0)

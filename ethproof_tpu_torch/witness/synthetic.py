@@ -1,11 +1,18 @@
-"""Synthetic value-transfer witnesses, built from a seed.
+"""Synthetic transaction witnesses, built from a seed.
 
 The JAX package has no counterpart module: its tests build the CPU tier's
-transfer by hand (tests/test_transfer_e2e.py:67, `make_transfer_witness`).
-`small_transfer` is that witness with its defaults; `seeded_transfer` is a
-mainnet-shaped EIP-1559 transfer over a seeded state trie. Both are
-`GenerationInputs` of one 21000-gas transfer, with the post-state root
-computed from the same accounts.
+witnesses by hand (tests/test_transfer_e2e.py:67, `make_transfer_witness`;
+tests/test_contract_call.py:39, `make_erc20_witness`).
+- `small_transfer` is the first with its defaults; `seeded_transfer` is a
+  mainnet-shaped EIP-1559 transfer over a seeded state trie. Both are
+  `GenerationInputs` of one 21000-gas transfer, with the post-state root
+  computed from the same accounts.
+- `small_erc20_transfer` is the second with its keywords;
+  `seeded_erc20_transfer` is an EIP-1559 call of `transfer(to, amount)` on
+  the token contract `evm.erc20.transfer_runtime()` over a seeded state
+  trie and a seeded token storage trie. Their post-state and receipts
+  roots are computed from the accounts, the balance slots and the
+  receipt, not by the prover.
 """
 
 from __future__ import annotations
@@ -14,12 +21,14 @@ from typing import Dict, Tuple
 
 import numpy as np
 
+from ..evm import erc20
 from ..evm.secp256k1 import N
 from ..evm.tx import private_key_to_address, sign_eip1559_tx, sign_legacy_tx
 from ..hash.keccak import keccak256
 from ..trie.nibbles import Nibbles
 from ..trie.trie import PartialTrie
 from .mpt import EMPTY_CODE_HASH, encode_account
+from ..trie import rlp
 from .types import BlockMetadata, GenerationInputs, TrieInputs, TrieRoots
 
 GAS = 21000  # intrinsic gas of an empty-data transfer
@@ -101,3 +110,156 @@ def seeded_transfer(n_accounts: int, seed: int) -> GenerationInputs:
     post[recipient] = (pre[recipient][0], pre[recipient][1] + value)
     post[miner] = (pre[miner][0], pre[miner][1] + tip)
     return transfer_inputs(raw, pre, post, miner, base_fee)
+
+
+# -- ERC-20 transfers -------------------------------------------------------------
+
+TOKEN = b"\xee" * 20  # the token's address in the small witness
+ERC20_GAS_LIMIT = 100000
+
+
+def _slot_key(slot: int) -> Nibbles:
+    return Nibbles.from_bytes(keccak256(slot.to_bytes(32, "big")))
+
+
+def _slot_value(v: int) -> bytes:
+    """Storage leaf value: RLP of the minimal big-endian integer."""
+    return rlp.encode(rlp.int_to_bytes(v))
+
+
+def _bloom(entries) -> bytes:
+    """2048-bit logs bloom: three bits per entry from keccak(entry)."""
+    bloom = bytearray(256)
+    for e in entries:
+        h = keccak256(e)
+        for k in (0, 2, 4):
+            bit = ((h[k] << 8) | h[k + 1]) & 2047
+            bloom[255 - bit // 8] |= 1 << (bit % 8)
+    return bytes(bloom)
+
+
+def _account(nonce: int, balance: int, storage_root: bytes = None,
+             code_hash: bytes = EMPTY_CODE_HASH) -> bytes:
+    return encode_account({
+        "nonce": nonce, "balance": balance,
+        "storage_root": storage_root or PartialTrie().hash(), "code_hash": code_hash,
+    })
+
+
+def erc20_inputs(raw_tx: bytes, key: int, accounts: Accounts, token: bytes, token_nonce: int,
+                 holders: Dict[int, int], recipient: bytes, amount: int, miner: bytes,
+                 base_fee: int, effective_price: int, tamper_root: bool = False
+                 ) -> GenerationInputs:
+    """GenerationInputs of the first transaction of a block: `raw_tx`
+    (signed by `key`) calls `transfer(recipient, amount)` on the token at
+    `token`, whose balance slots hold `holders` (holder -> tokens). The
+    state trie holds `accounts` (EOAs: address -> (nonce, balance)) and the
+    token. The consensus gas comes from a run of the machine's interpreter
+    on the witness; the post-state root applies the fee (the miner gets
+    the tip above `base_fee`), the sender's nonce and, when the sender
+    holds `amount`, the two balance slots; the receipts root holds the
+    receipt with its Transfer log."""
+    from ..evm.contract import consensus_gas_used
+
+    sender = private_key_to_address(key)
+    code = erc20.transfer_runtime()
+    code_hash = keccak256(code + b"\0" * (len(code) % 2))
+    strie = PartialTrie()
+    for holder, tokens in holders.items():
+        strie.insert(_slot_key(erc20.balance_slot(holder)), _slot_value(tokens))
+    state = PartialTrie()
+    for addr, (nonce, balance) in accounts.items():
+        state.insert(Nibbles.from_bytes(keccak256(addr)), _account(nonce, balance))
+    state.insert(Nibbles.from_bytes(keccak256(token)),
+                 _account(token_nonce, 0, strie.hash(), code_hash))
+    meta = BlockMetadata(block_beneficiary=miner, block_chain_id=1, block_base_fee=base_fee)
+
+    def inputs(gas_used: int, roots: TrieRoots) -> GenerationInputs:
+        return GenerationInputs(
+            txn_number_before=0, gas_used_before=0, gas_used_after=gas_used,
+            signed_txn=raw_tx,
+            tries=TrieInputs(state_trie=state, receipts_trie=PartialTrie(),
+                             storage_tries=[(keccak256(token), strie)]),
+            trie_roots_after=roots, checkpoint_state_trie_root=state.hash(),
+            block_metadata=meta, contract_code={code_hash: code},
+        )
+
+    gas_used = consensus_gas_used(inputs(0, TrieRoots()))
+    s_int, r_int = int.from_bytes(sender, "big"), int.from_bytes(recipient, "big")
+    ok = holders.get(s_int, 0) >= amount
+    post_strie = strie.copy()
+    logs, entries = [], []
+    if ok:
+        post_strie.insert(_slot_key(erc20.balance_slot(s_int)),
+                          _slot_value(holders[s_int] - amount))
+        post_strie.insert(_slot_key(erc20.balance_slot(r_int)),
+                          _slot_value(holders.get(r_int, 0) + amount
+                                      - (amount if r_int == s_int else 0)))
+        topics = [erc20.TRANSFER_TOPIC.to_bytes(32, "big"), s_int.to_bytes(32, "big"),
+                  r_int.to_bytes(32, "big")]
+        logs = [[token, topics, amount.to_bytes(32, "big")]]
+        entries = [token] + topics
+    receipt = rlp.encode([rlp.int_to_bytes(int(ok)), rlp.int_to_bytes(gas_used),
+                          _bloom(entries), logs])
+    tx_type = raw_tx[0] if raw_tx[0] < 0x7F else 0
+    receipts = PartialTrie()
+    receipts.insert(Nibbles.from_bytes(rlp.encode(rlp.int_to_bytes(0))),
+                    (bytes([tx_type]) + receipt) if tx_type else receipt)
+    post = state.copy()
+    nonce, balance = accounts[sender]
+    post.insert(Nibbles.from_bytes(keccak256(sender)),
+                _account(nonce + 1, balance - effective_price * gas_used))
+    post.insert(Nibbles.from_bytes(keccak256(token)),
+                _account(token_nonce, 0, post_strie.hash(), code_hash))
+    m_nonce, m_balance = accounts.get(miner, (0, 0))
+    post.insert(Nibbles.from_bytes(keccak256(miner)),
+                _account(m_nonce, m_balance + (effective_price - base_fee) * gas_used))
+    root = keccak256(b"wrong") if tamper_root else post.hash()
+    return inputs(gas_used, TrieRoots(state_root=root, receipts_root=receipts.hash()))
+
+
+def small_erc20_transfer(amount: int = 30, sender_tokens: int = 100, bob_tokens: int = 5,
+                         tamper_root: bool = False, gas_price: int = 0) -> GenerationInputs:
+    """The CPU tier's ERC-20 call (the keywords of
+    tests/test_contract_call.py:39): the sender (4, 50 wei) sends `amount`
+    of its `sender_tokens` to bob (`bob_tokens`) in a legacy transaction;
+    the miner holds 7 wei. `tamper_root` replaces the post-state root."""
+    sender = private_key_to_address(SMALL_KEY)
+    bob, miner = b"\xbb" * 20, b"\xcc" * 20
+    calldata = erc20.transfer_calldata(int.from_bytes(bob, "big"), amount)
+    raw = sign_legacy_tx(4, gas_price, ERC20_GAS_LIMIT, TOKEN, 0, calldata, SMALL_KEY,
+                         chain_id=1)
+    holders = {int.from_bytes(sender, "big"): sender_tokens, int.from_bytes(bob, "big"): bob_tokens}
+    return erc20_inputs(raw, SMALL_KEY, {sender: (4, 50), miner: (0, 7)}, TOKEN, 1, holders,
+                        bob, amount, miner, 0, gas_price, tamper_root)
+
+
+def seeded_erc20_transfer(n_accounts: int = 1000, n_holders: int = 1000, seed: int = 5,
+                          tamper_root: bool = False) -> GenerationInputs:
+    """An EIP-1559 token transfer (base fee about 12 gwei, priority fee 2
+    gwei) from a seeded key to another holder, over a seeded state trie of
+    `n_accounts` accounts (the sender, the token, the miner and other
+    EOAs) and a token storage trie of `n_holders` balance slots (the
+    sender and the recipient among them). `tamper_root` replaces the
+    post-state root."""
+    rng = np.random.default_rng(seed)
+    key = int.from_bytes(rng.bytes(32), "big") % (N - 1) + 1
+    sender = private_key_to_address(key)
+    accounts = {sender: (int(rng.integers(0, 1000)), 10**18 + int(rng.integers(0, 10**18)))}
+    token = rng.bytes(20)
+    miner = rng.bytes(20)
+    accounts[miner] = (int(rng.integers(0, 1000)), int(rng.integers(0, 10**18)) * 100)
+    while len(accounts) < n_accounts - 1:
+        accounts[rng.bytes(20)] = (int(rng.integers(0, 1000)), int(rng.integers(0, 10**18)) * 100)
+    holders = {int.from_bytes(sender, "big"): 10**24 + int(rng.integers(0, 10**18))}
+    while len(holders) < n_holders:
+        holders[int.from_bytes(rng.bytes(20), "big")] = int(rng.integers(1, 10**18)) * 10**6
+    recipient = list(holders)[1].to_bytes(20, "big")
+    amount = 10**21 + int(rng.integers(0, 10**18))
+    base_fee = 12 * 10**9 + int(rng.integers(0, 10**9))
+    priority, max_fee = 2 * 10**9, 40 * 10**9
+    calldata = erc20.transfer_calldata(int.from_bytes(recipient, "big"), amount)
+    raw = sign_eip1559_tx(1, accounts[sender][0], priority, max_fee, ERC20_GAS_LIMIT, token, 0,
+                          calldata, key)
+    return erc20_inputs(raw, key, accounts, token, 1, holders, recipient, amount, miner,
+                        base_fee, min(max_fee, base_fee + priority), tamper_root)

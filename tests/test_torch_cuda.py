@@ -169,3 +169,79 @@ def test_seven_table_transfer_on_card_equals_cpu(card, monkeypatch, encoding):
     assert len(got.multi.proofs) == 7
     _assert_same(tx_proof_to_numpy(got), tx_proof_to_numpy(want))
     assert verify_transfer(got, cfg, device=card)
+
+
+def test_ir_sweep_on_card_equals_cpu_direct_sweep(card):
+    """The machine's IR sweep on the card (one chunk, then several under a
+    small ETHPROOF_SWEEP_BUDGET) equals the CPU's direct evaluation on
+    seeded LDE columns with its CTL instances."""
+    import os
+
+    from ethproof_tpu_torch.evm import erc20
+    from ethproof_tpu_torch.stark import multi
+    from ethproof_tpu_torch.stark import prove as sp
+    from ethproof_tpu_torch.tables import all as tall
+    from ethproof_tpu_torch.tables import evm
+
+    shape, inputs = erc20.transfer_inputs(1, 2, 3, {1: 5})
+    shape, _, _ = evm.discover_and_execute(inputs.code, inputs.calldata, 1, 0,
+                                           inputs.storage_pre, 9)
+    machine = evm.EvmStark(shape)
+    inst = multi._instances_for_table(0, tall.build_ctls_evm(machine), [(3, 5), (7, 11)])[0]
+    log_n, rate_bits = 9, 2
+    m = 1 << (log_n + rate_bits)
+    rng = np.random.default_rng(40)
+    n_aux = len(inst)
+
+    def rand(*s):
+        return rng.integers(0, gfp.P, size=s, dtype=np.uint64)
+
+    host = (rand(machine.num_columns, m), rand(machine.num_fixed_columns, m), rand(n_aux, m))
+    scalars = ([int(v) for v in rand(len(inst))], [], [int(v) for v in rand(
+        machine.num_public_inputs)], [int(v) for v in rand(2)])
+
+    def args(dev):
+        t, f, a = (gfp.from_u64(x, dev) for x in host)
+        totals, lookups, pis, alphas = scalars
+        return (machine, t, f, a, inst, totals, lookups, pis, alphas, log_n, rate_bits, 7)
+
+    want = gfp.to_u64(sp._sweep(*args("cpu")))
+    for budget in (None, 1 << 22):
+        if budget is not None:
+            os.environ["ETHPROOF_SWEEP_BUDGET"] = str(budget)
+        try:
+            got = gfp.to_u64(sp._ir_sweep(*args(card)))
+        finally:
+            os.environ.pop("ETHPROOF_SWEEP_BUDGET", None)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_machine_proof_on_card_equals_cpu(card):
+    """A machine program with a KECCAK256 (the one of tests/test_evm_e2e.py,
+    `TableSizes(9, 8, 9, 9, 13, 6, 8)`: an ERC-20 call needs the 2^16-row
+    Arithmetic table, hours of plain Poseidon on the CPU): its multi-proof
+    made on the card equals the CPU plain path's table by table, and the
+    port verifies it."""
+    from ethproof_tpu_torch.interop import multi_proof_to_numpy
+    from ethproof_tpu_torch.tables import all as tall
+    from ethproof_tpu_torch.tables import evm as E
+
+    cfg = StarkConfig(num_challenges=2, fri_config=FriConfig(
+        rate_bits=2, cap_height=1, proof_of_work_bits=4, num_query_rounds=12,
+        arity_bits=2, final_poly_bits=2))
+    sizes = TableSizes(cpu=9, arithmetic=8, logic=9, bytepacking=9, memory=13, keccak=6,
+                       keccak_sponge=8)
+    code = E.asm(
+        ("push", 4), E.CALLDATALOAD, ("push", 0xBEEF), E.SLOAD, E.ADD,
+        ("push", 0xBEEF), E.SSTORE, E.CALLER, ("push", 0), E.MSTORE,
+        ("push", 0xBEEF), ("push", 32), E.MSTORE,
+        ("push", 64), ("push", 0), E.KECCAK256, E.POP,
+        ("push", 1), ("push", 0), E.MSTORE, ("push", 32), ("push", 0), E.RETURN,
+    )
+    calldata = bytes([0xA9, 0x05, 0x9C, 0xBB]) + (7).to_bytes(32, "big")
+    shape, _, res = E.discover_and_execute(code, calldata, 0xC0FFEE, 0, {0xBEEF: 35}, 9)
+    machine = E.EvmStark(shape)
+    want = tall.prove_evm_tables(machine, res, sizes, cfg, device="cpu")
+    got = tall.prove_evm_tables(machine, res, sizes, cfg, device=card)
+    _assert_same(multi_proof_to_numpy(got), multi_proof_to_numpy(want))
+    assert tall.verify_evm_tables(machine, res.pi_words, got, cfg, device=card)

@@ -63,3 +63,36 @@ def test_grind_pow_returns_the_same_witness():
         assert tfri.grind_pow(challenge, bits, device="cpu") == jfri.grind_pow(challenge, bits)
         # the smallest witness, whatever the batch
         assert tfri.grind_pow(challenge, bits, batch=7, device="cpu") == jfri.grind_pow(challenge, bits)
+
+
+def test_stark_without_folding_rounds_verifies_in_the_port():
+    """A table of 2^5 rows under `standard_fast_config` (final_poly_bits 5):
+    FRI has no folding round and its final polynomial is the composition's.
+    The port's verifier checks that polynomial against the oracles'
+    openings at every query, accepts the honest proof and rejects one with
+    a final coefficient or a trace opening changed; the reference's
+    verifier rejects even the honest proof (it compares the final
+    polynomial with a fold that no round made: ROADMAP Queue 3). The
+    contract path's machine proof has such a table (Logic at 2^5)."""
+    from ethproof_tpu.stark.verify import stark_verify as j_stark_verify
+    from ethproof_tpu.fri.config import standard_fast_config as j_standard_fast_config
+    from ethproof_tpu.tables import memory as jmem
+    from ethproof_tpu_torch.fri.config import standard_fast_config
+    from ethproof_tpu_torch.interop import proof_to_numpy
+    from ethproof_tpu_torch.stark.prove import stark_prove
+    from ethproof_tpu_torch.stark.verify import stark_verify
+    from ethproof_tpu_torch.tables import memory as tmem
+    from test_torch_stark import OPS, to_reference
+
+    config = standard_fast_config()
+    trace = tmem.generate_trace([tmem.MemoryOp(*op) for op in OPS], 32)
+    proof = stark_prove(tmem.MemoryStark(), trace, [], config, device="cpu")
+    assert config.fri_config.reduction_arity_bits(5) == []
+    assert stark_verify(tmem.MemoryStark(), proof, config, device="cpu")
+    assert not j_stark_verify(jmem.MemoryStark(), to_reference(proof_to_numpy(proof)),
+                              j_standard_fast_config())
+    proof.fri_proof.final_poly[3, 0] ^= 1
+    assert not stark_verify(tmem.MemoryStark(), proof, config, device="cpu")
+    proof.fri_proof.final_poly[3, 0] ^= 1
+    proof.trace_query_openings.values[0, 6] ^= 1
+    assert not stark_verify(tmem.MemoryStark(), proof, config, device="cpu")

@@ -65,6 +65,12 @@ MODULES = [
     "ethproof_tpu_torch.runtime.parsing",
     "ethproof_tpu_torch.runtime.prover_state",
     "ethproof_tpu_torch.evm.binding",
+    "ethproof_tpu_torch.stark.ir",
+    "ethproof_tpu_torch.tables.evm",
+    "ethproof_tpu_torch.evm.erc20",
+    "ethproof_tpu_torch.evm.cbinding",
+    "ethproof_tpu_torch.evm.contract",
+    "ethproof_tpu_torch.runtime.ops",
 ]
 
 
@@ -157,6 +163,30 @@ def test_prove_transfer_refuses_the_cpu_by_default():
     
     with pytest.raises(RuntimeError, match="device='cpu'"):
         prove_transfer(synthetic.small_transfer(), StarkConfig(), TableSizes(keccak=None))
+
+
+def test_contract_call_entry_points_refuse_the_cpu_by_default():
+    """`tx_proof` (a transfer and a contract call), `prove_contract_call`
+    and `verify_contract_call` raise before any work without a card unless
+    the caller passes device="cpu"."""
+    _cuda_absent()
+    from ethproof_tpu_torch.evm import contract
+    from ethproof_tpu_torch.fri.config import StarkConfig
+    from ethproof_tpu_torch.runtime import ops
+    from ethproof_tpu_torch.witness import synthetic
+
+    call = synthetic.small_erc20_transfer()
+    for gi in (synthetic.small_transfer(), call):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ops.tx_proof(gi, StarkConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        contract.prove_contract_call(call, StarkConfig())
+    shape, _, res = contract.machine_inputs_for_tx(call)
+    unproved = contract.ContractCallProof(
+        multi=None, shape=shape, machine_pi=list(res.pi_words), gen_inputs=call,
+        sender=b"", to=b"", miner=b"", gas_used=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        contract.verify_contract_call(unproved, StarkConfig())
 
 
 def test_unknown_ntt_encoding_raises():
