@@ -15,6 +15,9 @@ for a host-checked binding). `contract_call_to_numpy` gives the fields of a
 the binding's multi-proofs, the inner frames', the machine's shape
 (`dataclasses.asdict` of its `EvmShape`) and statement, and the binding's
 statement (`cb_pi`, `cb_n_slots`, `cb_kshape` as above).
+`machine_proof_to_numpy` gives the fields of a recursion `MachineProof`
+(ethproof_tpu/recursion/wrap.py:34): its `StarkProof` as above, `log_n`,
+`variant`, `seam` and `digest`.
 The witness is not converted: a caller rebuilds it with either package's
 constructors. Uses numpy only.
 """
@@ -71,6 +74,19 @@ def proof_to_numpy(proof) -> Dict[str, Any]:
         "aux_query_openings": _tree(proof.aux_query_openings),
         "quotient_query_openings": _tree(proof.quotient_query_openings),
         "fixed_query_openings": _tree(proof.fixed_query_openings),
+    }
+
+
+def machine_proof_to_numpy(mp) -> Dict[str, Any]:
+    def words(v):
+        return None if v is None else [int(w) for w in v]
+
+    return {
+        "proof": proof_to_numpy(mp.proof),
+        "log_n": int(mp.log_n),
+        "variant": int(mp.variant),
+        "seam": words(mp.seam),
+        "digest": words(mp.digest),
     }
 
 

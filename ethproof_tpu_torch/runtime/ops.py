@@ -4,9 +4,10 @@ Counterpart: ethproof_tpu/runtime/ops.py:1 (`FatalError`, `DummyProof`,
 `AggProof`, `GeneratedBlockProof`, `public_data`, `_callee_has_code`,
 `tx_proof`, `agg_combine`, `block_proof`, `verify_dummy`,
 `verify_aggregatable`, `verify_block`), with `device` threaded through the
-provers and verifiers. Recursion is not ported: a `recursion` state
-raises NotImplementedError in `tx_proof`, as does a succinct block in
-`verify_block`; dummies stay in the host-checked tier.
+provers and verifiers. The recursion ladder is not ported (the port has
+its core, `recursion/`: the verifier machine and the wrap): a `recursion`
+state raises NotImplementedError in `tx_proof`, as does a succinct block
+in `verify_block`; dummies stay in the host-checked tier.
 
 The aggregation is a binary tree over ADJACENT payloads; continuity of
 (txn number, gas, state root) across the seam is what `agg_combine`
@@ -121,7 +122,7 @@ def tx_proof(
     padding dummy's claim is host-checked. `phase_times` goes to the
     prover it dispatches to."""
     if recursion is not None:
-        raise NotImplementedError("recursion is not ported")
+        raise NotImplementedError("the recursion ladder (tx roots) is not ported")
     resolve_device(device)
     label = "0x" + keccak256(gi.signed_txn).hex()[:16] if gi.signed_txn else "Dummy"
     if gi.signed_txn is None:
@@ -233,7 +234,7 @@ def verify_block(bp: GeneratedBlockProof, config: StarkConfig,
     """Every leaf's proof and host binding, the seams, and the parent
     chain. A succinct block proof (recursion) is not ported."""
     if bp.succinct is not None and recursion is not None:
-        raise NotImplementedError("succinct block proofs (recursion) are not ported")
+        raise NotImplementedError("succinct block proofs (the recursion ladder) are not ported")
     if not verify_aggregatable(bp.agg, config, device):
         return False
     if bp.state_root_before != bp.agg.state_root_before:

@@ -17,12 +17,17 @@ device; the transcript runs on the host. What differs from the counterpart:
 - `lax.associative_scan` becomes a log-depth (Hillis-Steele) scan under
   field mul or add;
 - `fixed_cap` keeps only the in-memory cache: no artifact directory, no
-  mesh;
-- `custom_aux_columns` tables (recursion) raise NotImplementedError.
+  mesh.
+
+Tables with custom aux columns (the verifier machine's wire bus,
+recursion/machine.py) draw their aux challenges after the trace cap (and
+the lookup alphas), and their `custom_aux_columns` follow the CTL and
+logUp columns in the aux commit; both sweeps evaluate `eval_custom` over
+that slice (counterpart :561-590, :829).
 
 Transcript (the verifier mirrors it exactly):
   observe(public_inputs, degree_bits) -> [observe(fixed cap)] ->
-  observe(trace cap) -> [lookup alphas] -> [observe(aux cap) ->
+  observe(trace cap) -> [lookup alphas] -> [aux challenges] -> [observe(aux cap) ->
   observe(ctl totals)] -> alphas -> observe(quotient cap) -> zeta ->
   observe(openings) -> fri_alpha -> FRI transcript.
 """
@@ -328,10 +333,6 @@ def stark_prove(
     rate_bits = fri_cfg.rate_bits
     shift = fri_cfg.coset_shift
     instances = ctl_instances or []
-    if stark.num_custom_aux(config.num_challenges) or stark.num_aux_challenges(
-        config.num_challenges
-    ):
-        raise NotImplementedError("custom aux columns (recursion tables) are not ported yet")
 
     if challenger is None:
         challenger = Challenger()
@@ -350,10 +351,12 @@ def stark_prove(
     trace_lde = commitment.lde
     challenger.observe_cap(commitment.cap)
 
-    # 2. aux commit: CTL Z columns + logUp witness columns
+    # 2. aux commit: CTL Z columns + logUp witness columns + custom aux
     lookup_alphas: List[int] = []
     if stark.lookups:
         lookup_alphas = [challenger.get_challenge() for _ in range(config.num_challenges)]
+    aux_challenges = [challenger.get_challenge()
+                      for _ in range(stark.num_aux_challenges(config.num_challenges))]
     aux_tree = aux_lde = aux_coeffs = None
     aux_cap = None
     ctl_totals: List[int] = []
@@ -367,6 +370,9 @@ def stark_prove(
         lk_cols = _lookup_aux_columns(commitment.trace_gf, stark, lookup_alphas, fixed_gf)
         if lk_cols is not None:
             aux_parts.append(lk_cols)
+        if stark.num_custom_aux(config.num_challenges):
+            aux_parts.append(
+                stark.custom_aux_columns(commitment.trace_gf, fixed_gf, aux_challenges))
         if aux_parts:
             aux_coeffs, aux_lde, aux_tree = _commit_gf(torch.cat(aux_parts), config)
             aux_cap = gfp.to_u64(aux_tree.cap)
@@ -381,7 +387,7 @@ def stark_prove(
             stark, trace_lde, aux_lde, instances, ctl_totals, lookup_alphas,
             public_inputs, alphas, log_n, rate_bits, shift, fri_cfg,
             fixed_lde=fixed_cm.lde if fixed_cm is not None else None,
-            plan=phase_times,
+            plan=phase_times, aux_challenges=aux_challenges,
         )
         quotient_cap = gfp.to_u64(quotient_tree.cap)
     challenger.observe_cap(quotient_cap)
@@ -470,7 +476,8 @@ def ir_executor(stark, specs, num_challenges: int, n_lookup_alphas: int, has_aux
 
 
 def _ir_sweep(stark, trace_lde, fixed_lde, aux_lde, instances, ctl_totals, lookup_alphas,
-              public_inputs, alphas, log_n, rate_bits, shift, plan=None) -> torch.Tensor:
+              public_inputs, alphas, log_n, rate_bits, shift, plan=None,
+              aux_challenges=()) -> torch.Tensor:
     """Constraint sweep by the recorded IR (stark/ir.py) on the level
     executor -> (num_challenges, m) accumulators. The executor's input rows
     are built one domain chunk at a time: local rows, then next rows (the
@@ -487,7 +494,7 @@ def _ir_sweep(stark, trace_lde, fixed_lde, aux_lde, instances, ctl_totals, looku
         nxt = torch.arange(lo + rate, hi + rate, device=dev) % m
         return torch.cat([t for p in parts for t in (p[:, lo:hi], p.index_select(1, nxt))])
 
-    scalars = (list(public_inputs) + list(alphas) + list(lookup_alphas)
+    scalars = (list(public_inputs) + list(alphas) + list(lookup_alphas) + list(aux_challenges)
                + [inst.beta for inst in instances] + [inst.gamma for inst in instances]
                + list(ctl_totals))
     scal = gfp.from_u64(np.asarray([int(v) % P for v in scalars], dtype=np.uint64), dev)
@@ -499,9 +506,10 @@ def _ir_sweep(stark, trace_lde, fixed_lde, aux_lde, instances, ctl_totals, looku
 
 
 def _sweep(stark, trace_lde, fixed_lde, aux_lde, instances, ctl_totals, lookup_alphas,
-           public_inputs, alphas, log_n, rate_bits, shift, plan=None) -> torch.Tensor:
-    """Direct evaluation of the table's eval (+ CTL and lookup constraints)
-    over the whole LDE domain -> (num_challenges, m) accumulators. It has
+           public_inputs, alphas, log_n, rate_bits, shift, plan=None,
+           aux_challenges=()) -> torch.Tensor:
+    """Direct evaluation of the table's eval (+ CTL, lookup and custom aux
+    constraints) over the whole LDE domain -> (num_challenges, m) accumulators. It has
     no plan to report: `plan` is left as it is."""
     dev = trace_lde.device
     m = trace_lde.shape[-1]
@@ -538,12 +546,16 @@ def _sweep(stark, trace_lde, fixed_lde, aux_lde, instances, ctl_totals, lookup_a
                     aux_local[off : off + w], aux_next[off : off + w], spec, alpha,
                 )
                 off += w
+        k_custom = stark.num_custom_aux(len(alphas))
+        if k_custom:
+            stark.eval_custom(ctx, aux_local[off : off + k_custom],
+                              aux_next[off : off + k_custom], list(aux_challenges))
     return torch.stack(consumer.accs)
 
 
 def _compute_quotient(stark, trace_lde, aux_lde, instances, ctl_totals, lookup_alphas,
                       public_inputs, alphas, log_n, rate_bits, shift, fri_cfg,
-                      fixed_lde=None, plan=None):
+                      fixed_lde=None, plan=None, aux_challenges=()):
     n = 1 << log_n
     dev = trace_lde.device
     if stark.num_fixed_columns:
@@ -551,7 +563,7 @@ def _compute_quotient(stark, trace_lde, aux_lde, instances, ctl_totals, lookup_a
     sweep = {"ir": _ir_sweep, "eager": _sweep}[_sweep_mode()]
     accs = sweep(stark, trace_lde, fixed_lde if stark.num_fixed_columns else None, aux_lde,
                  instances, ctl_totals, lookup_alphas, public_inputs, alphas,
-                 log_n, rate_bits, shift, plan)
+                 log_n, rate_bits, shift, plan, aux_challenges)
     m = n << rate_bits
     zh_inv = gfp.inv(_zh_short(log_n, rate_bits, shift, dev)).repeat(m >> rate_bits)
     q_evals = gfp.mul(accs, zh_inv)  # (num_challenges, m)

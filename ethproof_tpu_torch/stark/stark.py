@@ -325,8 +325,7 @@ class Stark:
         return 0
 
     def custom_aux_columns(self, trace_gf, fixed_gf, challenges: List[int]):
-        """-> (num_custom_aux, n) device columns (recursion tables; not
-        ported yet)."""
+        """-> (num_custom_aux, n) columns on the trace's device."""
         raise NotImplementedError
 
     def eval_custom(self, ctx: EvalContext, aux_local, aux_next, challenges) -> None:

@@ -14,8 +14,9 @@ Reference equivalent: starky's `verify_stark_proof` + CTL verification. Checks:
 
 1. transcript replay (identical observation order to stark_prove)
 2. the constraint identity at zeta — running the SAME `Stark.eval` (and
-   the same engine-injected CTL/lookup constraints) the prover swept on
-   the device, but on host extension scalars
+   the same engine-injected CTL/lookup constraints, and a table's custom
+   aux constraints over the aux challenges drawn after the trace cap) the
+   prover swept on the device, but on host extension scalars
 3. FRI verification of the DEEP composition codeword
 4. per-query: Merkle paths of the trace/aux/quotient oracles and
    recomputation of the composition value from the opened leaves
@@ -83,8 +84,9 @@ def _leaf_digests(values: np.ndarray, device) -> List[List[int]]:
     return [[int(v) for v in d[:, q]] for q in range(values.shape[0])]
 
 
-def _replay_accs(stark, ops, instances, ctl_totals, lookup_alphas, alphas, local, nxt,
-                 fixed_l, fixed_n, aux_l, aux_n, pis, z_last, l_first, l_last) -> List[Ext]:
+def _replay_accs(stark, ops, instances, ctl_totals, lookup_alphas, aux_challenges, alphas,
+                 local, nxt, fixed_l, fixed_n, aux_l, aux_n, pis, z_last, l_first,
+                 l_last) -> List[Ext]:
     """The constraint accumulators at zeta by replaying the SAME recorded
     constraint program the prover swept."""
     return replay_accs(
@@ -93,7 +95,7 @@ def _replay_accs(stark, ops, instances, ctl_totals, lookup_alphas, alphas, local
         aux_l=aux_l, aux_n=aux_n, pis=pis,
         alphas=[ops.challenge(a) for a in alphas],
         lookup_alphas=[ops.challenge(a) for a in lookup_alphas],
-        aux_challenges=[],
+        aux_challenges=[ops.challenge(c) for c in aux_challenges],
         betas=[ops.challenge(inst.beta) for inst in instances],
         gammas=[ops.challenge(inst.gamma) for inst in instances],
         totals=[ops.challenge(t) for t in ctl_totals],
@@ -101,10 +103,11 @@ def _replay_accs(stark, ops, instances, ctl_totals, lookup_alphas, alphas, local
     )
 
 
-def _direct_accs(stark, ops, instances, ctl_totals, lookup_alphas, alphas, local, nxt,
-                 fixed_l, fixed_n, aux_l, aux_n, pis, z_last, l_first, l_last) -> List[Ext]:
-    """The constraint accumulators at zeta by running `eval` (+ the CTL and
-    lookup constraints) directly on host extension pairs."""
+def _direct_accs(stark, ops, instances, ctl_totals, lookup_alphas, aux_challenges, alphas,
+                 local, nxt, fixed_l, fixed_n, aux_l, aux_n, pis, z_last, l_first,
+                 l_last) -> List[Ext]:
+    """The constraint accumulators at zeta by running `eval` (+ the CTL,
+    lookup and custom aux constraints) directly on host extension pairs."""
     consumer = ConstraintConsumer(ops, alphas, z_last, l_first, l_last)
     ctx = EvalContext(ops, local, nxt, pis, consumer, fixed_l, fixed_n)
     stark.eval(ctx)
@@ -123,6 +126,10 @@ def _direct_accs(stark, ops, instances, ctl_totals, lookup_alphas, alphas, local
                 aux_l[off : off + w], aux_n[off : off + w], spec, alpha,
             )
             off += w
+    k_custom = stark.num_custom_aux(len(alphas))
+    if k_custom:
+        stark.eval_custom(ctx, aux_l[off : off + k_custom], aux_n[off : off + k_custom],
+                          list(aux_challenges))
     return consumer.accs
 
 
@@ -146,10 +153,6 @@ def stark_verify(
     k_ctl = len(instances)
     chunks = stark.quotient_chunks(bool(instances))
 
-    if stark.num_custom_aux(config.num_challenges) or stark.num_aux_challenges(
-        config.num_challenges
-    ):
-        raise NotImplementedError("custom aux columns (recursion tables) are not ported yet")
     if challenger is None:
         challenger = Challenger()
 
@@ -171,8 +174,13 @@ def stark_verify(
     lookup_alphas: List[int] = []
     if stark.lookups:
         lookup_alphas = [challenger.get_challenge() for _ in range(config.num_challenges)]
+    aux_challenges = [
+        challenger.get_challenge()
+        for _ in range(stark.num_aux_challenges(config.num_challenges))
+    ]
     k_lookup = sum(lookup_aux_count(s) for s in stark.lookups) * config.num_challenges
-    k_aux = k_ctl + k_lookup
+    k_custom = stark.num_custom_aux(config.num_challenges)
+    k_aux = k_ctl + k_lookup + k_custom
     if k_aux:
         if proof.aux_cap is None:
             return False
@@ -220,8 +228,8 @@ def stark_verify(
     fixed_nx: List[Ext] = _pairs(o.fixed_at_gzeta)
     pis = [ops.constant(int(x)) for x in proof.public_inputs]
     aux_l, aux_n = _pairs(o.aux_at_zeta), _pairs(o.aux_at_gzeta)
-    accs = _replay_accs(stark, ops, instances, proof.ctl_totals, lookup_alphas, alphas,
-                        local, nxt, fixed_l, fixed_nx, aux_l, aux_n, pis,
+    accs = _replay_accs(stark, ops, instances, proof.ctl_totals, lookup_alphas, aux_challenges,
+                        alphas, local, nxt, fixed_l, fixed_nx, aux_l, aux_n, pis,
                         z_last, l_first, l_last)
     for ai in range(config.num_challenges):
         q: Ext = (0, 0)

@@ -245,3 +245,53 @@ def test_machine_proof_on_card_equals_cpu(card):
     got = tall.prove_evm_tables(machine, res, sizes, cfg, device=card)
     _assert_same(multi_proof_to_numpy(got), multi_proof_to_numpy(want))
     assert tall.verify_evm_tables(machine, res.pi_words, got, cfg, device=card)
+
+
+def _leaf_machine():
+    """The wrap tests' leaf circuit (PI = Poseidon digest of x^2 + 3x + 5)
+    as a verifier-machine stark, its trace and its public inputs."""
+    from ethproof_tpu_torch.hash import poseidon
+    from ethproof_tpu_torch.recursion import CBuilder, RecursionStark, generate_trace, interpret
+
+    b = CBuilder()
+    x = b.wit("x")
+    y = b.add(b.add(b.mul(x, x), b.mulc(3, x)), b.const(5))
+    out = b.poseidon([y] + [b.const(0)] * 11)
+    for k in range(4):
+        b.expose(out[k], k)
+    circuit = b.build()
+    digest = poseidon.permute_host([(7 * 7 + 3 * 7 + 5) % gfp.P] + [0] * 11)[:4]
+    stark = RecursionStark(circuit)
+    n = 1 << max(circuit.num_rows - 1, 1).bit_length()
+    return stark, generate_trace(stark, interpret(circuit, [7], digest), n), digest
+
+
+def test_custom_aux_columns_on_card_equal_cpu(card):
+    """The machine's wire-bus columns (two (beta, gamma) pairs) on the card
+    equal the CPU's, on the trace's device."""
+    stark, trace, _ = _leaf_machine()
+    fixed = stark.fixed_columns(trace.shape[1])
+    challenges = [int(v) for v in _vals(4, 12)]
+    got = stark.custom_aux_columns(gfp.from_u64(trace, card), gfp.from_u64(fixed, card),
+                                   challenges)
+    want = stark.custom_aux_columns(gfp.from_u64(trace, "cpu"), gfp.from_u64(fixed, "cpu"),
+                                    challenges)
+    assert got.device.type == "cuda"
+    np.testing.assert_array_equal(gfp.to_u64(got), gfp.to_u64(want))
+
+
+def test_small_machine_proof_on_card_equals_cpu(card):
+    """A verifier-machine proof (custom aux columns) made on the card equals
+    the CPU plain path's field for field, and the port verifies it."""
+    from ethproof_tpu_torch.interop import machine_proof_to_numpy
+    from ethproof_tpu_torch.recursion import MachineProof, verify_machine
+
+    cfg = StarkConfig(num_challenges=2, fri_config=FriConfig(
+        rate_bits=2, cap_height=1, proof_of_work_bits=4, num_query_rounds=12,
+        arity_bits=2, final_poly_bits=2))
+    stark, trace, digest = _leaf_machine()
+    log_n = trace.shape[1].bit_length() - 1
+    got = MachineProof(stark_prove(stark, trace, digest, cfg, device=card), log_n)
+    want = MachineProof(stark_prove(stark, trace, digest, cfg, device="cpu"), log_n)
+    _assert_same(machine_proof_to_numpy(got), machine_proof_to_numpy(want))
+    assert verify_machine(stark, got, cfg, device=card)

@@ -13,9 +13,10 @@ So fixed, the reference is a witness of the port's machine that is not the
 port: its run of each ERC-20 case equals the port's field for field, its
 own row-by-row constraint check and its CTL multiset check accept that run,
 its recorded machine program and CTL graph equal the port's, its FRI
-verifier accepts the port's proof of a table with no folding round, and it
-proves tests/test_evm_e2e.py's program to the port's machine multi-proof,
-bit for bit, and verifies it. Exact u64 equality throughout.
+verifier accepts the port's proof of a table with no folding round, its
+`verify_evm_tables` alone accepts the port's machine multi-proof of
+tests/test_evm_e2e.py's program, and it proves that program to the port's
+multi-proof, bit for bit, and verifies it. Exact u64 equality throughout.
 """
 
 import dataclasses
@@ -185,6 +186,27 @@ def test_fixed_reference_verifies_a_proof_without_folding_rounds(fixed_reference
     assert jsverify.stark_verify(j_stark, to_reference(proof_to_numpy(proof)), j_config)
     proof.fri_proof.final_poly[3, 0] ^= 1
     assert not jsverify.stark_verify(j_stark, to_reference(proof_to_numpy(proof)), j_config)
+
+
+@pytest.mark.slow
+def test_fixed_reference_verifies_the_port_machine_proof(fixed_reference, monkeypatch):
+    """tests/test_evm_e2e.py's program at its sizes: the port's machine
+    multi-proof, with no reference proof beside it, passes the fixed
+    reference's `verify_evm_tables`, which rejects it under a forged
+    post-storage PI word."""
+    monkeypatch.setattr(jgf, "_inv_jit", jgf._inv_impl)
+    torch.set_num_threads(4)
+    j_shape, _, _ = _e2e(jevm)
+    t_shape, _, got_res = _e2e(tevm)
+    got = tall.prove_evm_tables(tevm.EvmStark(t_shape), got_res, tall.TableSizes(**E2E_SIZES),
+                                T_CFG, device="cpu")
+    torch.set_num_threads(1)
+    j_machine = jevm.EvmStark(j_shape)
+    as_reference = JMultiProof(proofs=[to_reference(p) for p in multi_proof_to_numpy(got)])
+    assert jall.verify_evm_tables(j_machine, got_res.pi_words, as_reference, J_CFG)
+    bad = list(got_res.pi_words)
+    bad[j_shape.pi_layout["storage"] + 3] += 1
+    assert not jall.verify_evm_tables(j_machine, bad, as_reference, J_CFG)
 
 
 @pytest.mark.slow

@@ -71,6 +71,13 @@ MODULES = [
     "ethproof_tpu_torch.evm.cbinding",
     "ethproof_tpu_torch.evm.contract",
     "ethproof_tpu_torch.runtime.ops",
+    "ethproof_tpu_torch.tables.poseidon_table",
+    "ethproof_tpu_torch.recursion",
+    "ethproof_tpu_torch.recursion.circuit",
+    "ethproof_tpu_torch.recursion.ops_circuit",
+    "ethproof_tpu_torch.recursion.machine",
+    "ethproof_tpu_torch.recursion.verifier_circuit",
+    "ethproof_tpu_torch.recursion.wrap",
 ]
 
 
