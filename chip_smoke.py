@@ -33,11 +33,26 @@ and the script exits non-zero; no phase's failure is caught):
              `verify_machine`; a child with one opened value changed is
              refused by `interpret`, a wrap proof with one trace-cap word
              or one opening changed by `verify_machine`;
-5. small transfer — the five-table transfer proof and the seven-table one
-             (`SIZES7` of tests/test_transfer_e2e.py: the Keccak pair on, the
-             binding dropped by the cpu < 2^11 pre-guard) at the CPU tier's
-             sizes, made on the card under each NTT encoding, must equal the
-             CPU plain path's proof field for field, table by table;
+5. small transfer — the seven-table transfer proof (`SIZES7` of
+             tests/test_transfer_e2e.py: the Keccak pair on, the binding
+             dropped by the cpu < 2^11 pre-guard) at the CPU tier's sizes,
+             made on the card under each NTT encoding, must equal the CPU
+             plain path's proof field for field, table by table;
+   succinct — the recursion ladder at the JAX package's succinct fixture
+             (tests/test_succinct_block.py:42-53: one query, the CPU tier's
+             five-table sizes): `transfer_chain(2)` and the no-op dummy at
+             its post state through `runtime.ops.tx_proof(...,
+             recursion=recursion_state(SIZES, TINY, device="cuda"))` (the
+             roots built: the distinct overlap's, the one kernel that fits
+             the 2^5-row CPU table, and the dummy's; two five-table transfer
+             proofs, equal to the CPU plain path's, and three root machine
+             proofs), `agg_combine`/`block_proof`, `fold_proofs` to level 2
+             and the block base wrap, i8, launch counts reset just before,
+             read just after: gates, rows and degree of every circuit, host
+             seconds per step and machine-proof phases of every rung, peak,
+             the digest SUCCINCT_DIGEST; `verify_block(recursion=state)`
+             accepts the block and rejects a changed leaf statement, a
+             flipped opening of the top proof and a changed top statement;
 6. transfer7 — the transfer path: an EIP-1559 transfer over a seeded
              1,000-account state trie, proved by
              `prove_transfer(gi, config, CircuitConfig(), binding="require")`,
@@ -61,25 +76,29 @@ and the script exits non-zero; no phase's failure is caught):
              that ends `prove_contract_call` (`tx_proof` raises its refusal
              as FatalError; the CPU tests drive that path);
 8. census  — both kernels timed at every base-DFT shape the transfer,
-             contract and wrap proofs launched, beside their bounds, the
-             launch floor and a one-tile call;
+             contract, wrap and succinct proofs launched, beside their
+             bounds, the launch floor and a one-tile call;
 9. result  — one JSON line listing every kernel (launches: base_dft's of
              the contract path's proof, base_dft_bf16's of the 2^17-row
              Memory proof's bf16 run), the card's name and power limit, and
              the last line {"ok": true, "device": {...}}.
 
 The full-width five-table transfer of slice 2 is no longer run: the
-five-table path stays driven at the CPU tier's sizes under both encodings
-(phase 5), and the kernels' bits are pinned by TRANSFER7_DIGEST and the
-census. Nor is the seven-table transfer's bf16 re-proof: the wrap took its
-time, and the bf16 kernel is driven at full width by the Memory proof.
+five-table path stays driven at the CPU tier's sizes under i8 (the succinct
+phase's two transfers), and the kernels' bits are pinned by
+TRANSFER7_DIGEST and the census. Nor is the full-width seven-table
+transfer's bf16 re-proof: the wrap took its time, and the bf16 kernel is
+driven at full width by the Memory proof.
 
 `python3 chip_smoke.py --profile` instead builds the kernels and profiles
 one 2^17-row Memory proof (device kernels by name, idle share, layer
 times); `python3 chip_smoke.py --memory` proves the 2^17-row Memory table
 under each sweep (IR and direct) and the transfer and contract paths once
-each, and prints each phase's seconds and peak device memory.
-Neither prints a result line.
+each, and prints each phase's seconds and peak device memory;
+`python3 chip_smoke.py --succinct` builds the kernels and runs the succinct
+phase alone; `python3 chip_smoke.py --root-size` compiles the full-width
+transfer root (the seven-table transfer path's verifier, at
+`standard_fast_config`) and prints its size. None prints a result line.
 
 Without a CUDA card, or run outside the repository, it exits non-zero and
 prints no result.
@@ -685,9 +704,9 @@ def small_transfer_sizes(keccak):
 
 
 def cpu_small_transfers():
-    """The CPU plain path's five- and seven-table transfer proofs at the CPU
-    tier's sizes -> ({keccak size: interop proofs}, seconds). Run in a
-    worker process while the card works on the earlier phases."""
+    """The CPU plain path's seven-table transfer proof at the CPU tier's
+    sizes -> (interop proofs, seconds). Run in a worker process while the
+    card works on the earlier phases."""
     import torch
 
     from ethproof_tpu_torch.evm.transfer import prove_transfer
@@ -697,42 +716,253 @@ def cpu_small_transfers():
     torch.set_num_threads(4)
     t0 = time.perf_counter()
     gi, config = synthetic.small_transfer(), small_transfer_config()
-    proofs = {keccak: multi_proof_to_numpy(
-        prove_transfer(gi, config, small_transfer_sizes(keccak), device="cpu").multi)
-        for keccak in (None, 5)}
+    proofs = multi_proof_to_numpy(
+        prove_transfer(gi, config, small_transfer_sizes(5), device="cpu").multi)
     return proofs, time.perf_counter() - t0
 
 
 def phase_small_transfer(on_cpu_future) -> None:
-    """The card's five- and seven-table transfer proofs at the CPU tier's
-    sizes, under each encoding, equal the CPU plain path's (from
-    `cpu_small_transfers`), table by table."""
+    """The card's seven-table transfer proof at the CPU tier's sizes, under
+    each encoding, equals the CPU plain path's (from `cpu_small_transfers`),
+    table by table. (The five-table transfer is held against the CPU by
+    `phase_succinct`, whose ladder proves two.)"""
     from ethproof_tpu_torch.evm.transfer import prove_transfer
     from ethproof_tpu_torch.interop import multi_proof_to_numpy
     from ethproof_tpu_torch.poly import base_dft as bd
     from ethproof_tpu_torch.witness import synthetic
 
     gi, config = synthetic.small_transfer(), small_transfer_config()
+    sizes = small_transfer_sizes(5)
     on_cpu = cpu_s = None
-    for keccak in (None, 5):
-        sizes = small_transfer_sizes(keccak)
-        for encoding in ("i8", "bf16"):
-            bd.ENCODING = encoding
-            t0 = time.perf_counter()
+    for encoding in ("i8", "bf16"):
+        bd.ENCODING = encoding
+        t0 = time.perf_counter()
+        try:
             on_card = multi_proof_to_numpy(
                 prove_transfer(gi, config, sizes, device="cuda").multi)
-            card_s = time.perf_counter() - t0
-            if on_cpu is None:
-                on_cpu, cpu_s = on_cpu_future.result()
-            for t, (x, y) in enumerate(zip(on_card, on_cpu[keccak])):
-                if not same(x, y):
-                    raise AssertionError(f"small transfer, {encoding}: table {t}'s proof on "
-                                         "the card differs from the CPU's")
-            print(f"[small transfer] {len(on_card)} tables, {encoding}: card ({card_s:.2f} s) "
-                  f"and CPU plain path agree field for field in every table")
-        bd.ENCODING = "i8"
-    print(f"[small transfer] the CPU plain path's two proofs took {cpu_s:.2f} s in a worker "
+        finally:
+            bd.ENCODING = "i8"
+        card_s = time.perf_counter() - t0
+        if on_cpu is None:
+            on_cpu, cpu_s = on_cpu_future.result()
+        for t, (x, y) in enumerate(zip(on_card, on_cpu)):
+            if not same(x, y):
+                raise AssertionError(f"small transfer, {encoding}: table {t}'s proof on "
+                                     "the card differs from the CPU's")
+        print(f"[small transfer] {len(on_card)} tables, {encoding}: card ({card_s:.2f} s) "
+              f"and CPU plain path agree field for field in every table")
+    print(f"[small transfer] the CPU plain path's proof took {cpu_s:.2f} s in a worker "
           "process, beside the card's phases")
+
+
+# the recursion ladder's fixture: tests/test_succinct_block.py:42-53 of the
+# JAX package (one challenge, rate 2, cap height 0, no PoW, ONE query, arity
+# 2^3, final polynomial 2^3; the CPU tier's five-table sizes)
+SUCCINCT_SIZES = dict(cpu=5, arithmetic=6, logic=4, bytepacking=9, memory=7, keccak=None)
+# sha256 (`proof_digest`) of the succinct block's top aggregation proof and
+# its block wrap (`machine_proof_to_numpy`, `block_wrap_proof_to_numpy`),
+# recorded on an NVIDIA H100 80GB HBM3 (700 W) by the commit that added it
+SUCCINCT_DIGEST = "a2883ba8d3c449312ec6835e528b0f9342cee742f70fda58ff8e5e051c9682f6"
+
+
+def succinct_config():
+    from ethproof_tpu_torch.fri.config import FriConfig, StarkConfig
+
+    return StarkConfig(num_challenges=1, fri_config=FriConfig(
+        rate_bits=2, cap_height=0, proof_of_work_bits=0, num_query_rounds=1,
+        arity_bits=3, final_poly_bits=3))
+
+
+def cpu_succinct_transfers():
+    """The CPU plain path's five-table proofs of `transfer_chain(2)` under
+    the ladder's fixture (binding None, as the recursion state's) ->
+    (interop proofs per transfer, seconds). Run in the worker process."""
+    import torch
+
+    from ethproof_tpu_torch.evm.transfer import prove_transfer
+    from ethproof_tpu_torch.interop import multi_proof_to_numpy
+    from ethproof_tpu_torch.tables.all import TableSizes
+    from ethproof_tpu_torch.witness import synthetic
+
+    torch.set_num_threads(4)
+    t0 = time.perf_counter()
+    proofs = [multi_proof_to_numpy(prove_transfer(
+        gi, succinct_config(), TableSizes(**SUCCINCT_SIZES), binding=None, device="cpu").multi)
+        for gi in synthetic.transfer_chain(2)]
+    return proofs, time.perf_counter() - t0
+
+
+def circuit_line(name: str, stark, log_n: int, times: dict) -> str:
+    from ethproof_tpu_torch.recursion.circuit import G_POSEIDON
+
+    gates = stark.circuit.gates
+    n_pos = sum(1 for g in gates if g.op == G_POSEIDON)
+    host = times.get("host", {})
+    return (f"{name}: {len(gates)} gates ({n_pos} Poseidon), machine {stark.num_rows} rows, "
+            f"degree 2^{log_n}; build host s " + json.dumps({k: round(v, 3) for k, v in host.items()}))
+
+
+def rung_line(name: str, wall, times: dict) -> str:
+    """One machine proof of a rung: wall (when timed apart), host steps,
+    machine phases."""
+    host = times.get("host", {})
+    machine = {k: v for k, v in times.get("machine", {}).items() if k != "ir_plan"}
+    return (f"{name}: " + ("" if wall is None else f"{wall:.3f} s; ")
+            + f"host {sum(host.values()):.3f} s "
+            + json.dumps({k: round(v, 3) for k, v in host.items()})
+            + f"; machine proof {sum(v for k, v in machine.items() if not k.startswith('GB_')):.3f} s "
+            + json.dumps({k: round(v, 3) for k, v in machine.items()}))
+
+
+def phase_succinct(card: str, on_cpu_future) -> dict:
+    """The recursion ladder on the card, at the JAX package's succinct
+    fixture: `transfer_chain(2)` and the no-op dummy at its post state, each
+    through `runtime.ops.tx_proof(gi, TINY, SIZES, recursion=state,
+    device="cuda")` (a five-table transfer proof and its tx root machine
+    proof; the dummy's root), the block composed as the in-process half of
+    the JAX package's `prove_block(recursion=True)` does (`agg_combine`,
+    `block_proof`), the three roots folded to level 2 (`fold_proofs`, padded
+    to four) and the block base wrap (`build_block_wraps(...).prove_base`);
+    i8, launch counts reset just before, read just after. The two transfer
+    multi-proofs equal the CPU plain path's (`cpu_succinct_transfers`);
+    `verify_block(..., recursion=state)` accepts the block and rejects a
+    changed leaf statement, a flipped opening of the top proof and a changed
+    top statement; the top proof and wrap have the digest SUCCINCT_DIGEST
+    -> the base-DFT census of the phase."""
+    import copy
+    import os
+
+    import torch
+
+    from ethproof_tpu_torch.hash.keccak import keccak256
+    from ethproof_tpu_torch.interop import (block_wrap_proof_to_numpy,
+                                            machine_proof_to_numpy, multi_proof_to_numpy)
+    from ethproof_tpu_torch.poly import base_dft as bd
+    from ethproof_tpu_torch.recursion import build_block_wraps, fold_proofs, recursion_state
+    from ethproof_tpu_torch.runtime import ops
+    from ethproof_tpu_torch.tables.all import TableSizes
+    from ethproof_tpu_torch.witness import synthetic
+
+    if os.environ.get("ETHPROOF_ARTIFACT_DIR"):
+        raise AssertionError("the succinct phase times cold builds: unset ETHPROOF_ARTIFACT_DIR")
+    config, sizes = succinct_config(), TableSizes(**SUCCINCT_SIZES)
+    payloads = synthetic.transfer_chain(2) + [synthetic.noop_dummy(2)]
+    bd.ENCODING = "i8"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t_block = time.perf_counter()
+    state = recursion_state(sizes, config, device="cuda")
+    multis = []
+    prove_transfer = ops.prove_transfer
+
+    def recording(*args, **kwargs):  # keeps the multi-proof that the root subsumes
+        proof = prove_transfer(*args, **kwargs)
+        multis.append(proof.multi)
+        return proof
+
+    ops.prove_transfer = recording
+    leaves = []
+    try:
+        for i, gi in enumerate(payloads):
+            times: dict = {}
+            t0 = time.perf_counter()
+            leaves.append(ops.tx_proof(gi, config, sizes, recursion=state, device="cuda",
+                                       phase_times=times))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            kind = "transfer" if gi.signed_txn else "no-op dummy"
+            tables = {k: round(sum(v for p, v in ph.items() if p != "ir_plan"), 3)
+                      for k, ph in times.items() if k not in ("host", "root")}
+            print(f"[succinct] tx_proof {i} ({kind}) on {card}: {wall:.3f} s; variant "
+                  f"{leaves[-1].root_proof.variant}; table proofs s {json.dumps(tables)}, "
+                  f"host s {json.dumps({k: round(v, 3) for k, v in times.get('host', {}).items()})}")
+            print("[succinct]   " + rung_line("its root proof", None, times["root"]))
+    finally:
+        ops.prove_transfer = prove_transfer
+    for name, times in state.build_times.items():
+        root = state.roots.get(name.split("/")[-1]) if name.startswith("txroot") \
+            else state.dummy_root()
+        print("[succinct] built " + circuit_line(name, root.stark, state.root_log_n, times))
+    agg = ops.agg_combine(ops.agg_combine(leaves[0], leaves[1]), leaves[2])
+    bp = ops.block_proof(agg)
+    roots = [leaf.root_proof for leaf in leaves]
+    fold_times: dict = {}
+    t0 = time.perf_counter()
+    top, level = fold_proofs(state.ladder, roots, config, phase_times=fold_times)
+    torch.cuda.synchronize()
+    fold_s = time.perf_counter() - t0
+    for lv in sorted(state.ladder.build_times):
+        stark_lv, log_n = state.ladder.level_shape(lv)
+        print("[succinct] built " + circuit_line(f"agg level {lv}", stark_lv[0], log_n,
+                                                 state.ladder.build_times[lv]))
+    for lv, proofs in sorted(fold_times.items()):
+        for j, times in enumerate(proofs):
+            print("[succinct] " + rung_line(f"agg level {lv} proof {j}", times["wall"], times))
+    print(f"[succinct] fold of {len(roots)} roots to level {level}: {fold_s:.3f} s")
+    if level != 2:
+        raise AssertionError(f"three leaves folded to level {level}, not 2")
+    bp.succinct = ops.SuccinctBlockProof(top=top, level=level, sizes=sizes)
+    t0 = time.perf_counter()
+    wraps = build_block_wraps(state.ladder, level, config)
+    for name, times in wraps.build_times.items():
+        circ = wraps.base if name == "base" else wraps.step
+        print("[succinct] built " + circuit_line(f"block {name}", circ.stark, wraps.log_n, times))
+    print(f"[succinct] block wraps built in {time.perf_counter() - t0:.3f} s, degree "
+          f"2^{wraps.log_n}")
+    times = {}
+    t0 = time.perf_counter()
+    bp.succinct.block_wrap = wraps.prove_base(top, phase_times=times)
+    torch.cuda.synchronize()
+    print("[succinct] " + rung_line("block base proof", time.perf_counter() - t0, times))
+    block_s = time.perf_counter() - t_block
+    launches, census = dict(bd.LAUNCHES), dict(bd.CENSUS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[succinct] the block (3 payloads, level-2 fold, base wrap) proved on {card} in "
+          f"{block_s:.3f} s, launches {launches}, peak device memory {peak_gb:.2f} GB")
+    if launches["base_dft"] <= 0 or launches["base_dft_bf16"] != 0:
+        raise AssertionError(f"the ladder under i8 launched {launches}")
+    on_cpu, cpu_s = on_cpu_future.result()
+    if len(multis) != 2 or not all(same(multi_proof_to_numpy(m), c)
+                                   for m, c in zip(multis, on_cpu)):
+        raise AssertionError("the ladder's five-table transfer proofs on the card differ from "
+                             "the CPU plain path's")
+    print(f"[succinct] its two five-table transfer proofs equal the CPU plain path's field for "
+          f"field (CPU {cpu_s:.2f} s in the worker process)")
+    digest = proof_digest({"top": machine_proof_to_numpy(top),
+                           "block_wrap": block_wrap_proof_to_numpy(bp.succinct.block_wrap)})
+    print(f"[succinct] top proof and block wrap sha256 {digest}")
+    if SUCCINCT_DIGEST is not None and digest != SUCCINCT_DIGEST:
+        raise AssertionError(f"the succinct block's digest {digest} differs from the recorded "
+                             f"one ({SUCCINCT_DIGEST})")
+    t0 = time.perf_counter()
+    ok = ops.verify_block(bp, config, recursion=state, device="cuda")
+    print(f"[succinct] verify_block(recursion=state): {ok} in {time.perf_counter() - t0:.2f} s")
+    if not ok:
+        raise AssertionError("the succinct block does not verify")
+
+    def leaf_statement(b):
+        b.agg.left.left.gen_inputs.trie_roots_after.state_root = keccak256(b"no")
+
+    def top_opening(b):
+        b.succinct.top.proof.trace_query_openings.values[0, 0] ^= 1
+
+    def top_statement(b):
+        pis = b.succinct.top.proof.public_inputs
+        pis[0] = (int(pis[0]) + 1) % P
+
+    for name, tamper in (("a changed leaf statement", leaf_statement),
+                         ("one flipped opening of the top proof", top_opening),
+                         ("a changed top statement", top_statement)):
+        bad = copy.deepcopy(bp)
+        tamper(bad)
+        t0 = time.perf_counter()
+        rejected = not ops.verify_block(bad, config, recursion=state, device="cuda")
+        print(f"[succinct] verify_block with {name}: "
+              f"{'rejected' if rejected else 'ACCEPTED'} in {time.perf_counter() - t0:.2f} s")
+        if not rejected:
+            raise AssertionError(f"verify_block accepted {name}")
+    return census
 
 
 def proof_digest(proofs) -> str:
@@ -795,7 +1025,7 @@ def phase_census(card: str, census: dict) -> None:
               f"base_dft_bf16 {one_tile['bf16', n]:.4f} ms")
     per_proof = {}
     print(f"[census] {len(shapes)} shapes, {sum(s[3] for s in shapes)} launches in the "
-          f"transfer7, contract and wrap proofs, on {card}")
+          f"transfer7, contract, wrap and succinct proofs, on {card}")
     for rows, n, inverse, count in shapes:
         log_n = n.bit_length() - 1
         a = torch.randint(0, 1 << 62, (rows, n), dtype=torch.int64, device="cuda")
@@ -831,7 +1061,7 @@ def phase_census(card: str, census: dict) -> None:
             raise AssertionError(f"({rows}, {n}) inverse={inverse}: base_dft != base_dft_bf16")
         del a, got
     for name, tot in per_proof.items():
-        print(f"[census] {name} in the transfer7, contract and wrap proofs: {tot['ms']:.3f} ms of kernel "
+        print(f"[census] {name} in the transfer7, contract, wrap and succinct proofs: {tot['ms']:.3f} ms of kernel "
               f"time, bound "
               f"{tot['bound_ms']:.3f} ms, launches x (ms - bound) "
               f"{tot['ms'] - tot['bound_ms']:.3f} ms")
@@ -1059,6 +1289,55 @@ def phase_contract(card: str):
     return launches, census
 
 
+def phase_root_size(card: str) -> None:
+    """The size of a full-width tx root: the circuit verifying the transfer
+    path's seven-table proof (`transfer_cpu_stark(OVERLAP_DISTINCT,
+    PRODUCTION_SHAPE)` at TRANSFER7_LOGS under `standard_fast_config`, the
+    tables' vkeys committed on the card), compiled and laid out but not
+    proved: gates (Poseidon gates), machine rows and degree, the gates each
+    table's verifier adds, host seconds and the host's peak memory."""
+    import resource
+
+    from ethproof_tpu_torch.evm.binding import PRODUCTION_SHAPE
+    from ethproof_tpu_torch.evm.transfer import OVERLAP_DISTINCT, transfer_cpu_stark
+    from ethproof_tpu_torch.fri.config import standard_fast_config
+    from ethproof_tpu_torch.recursion import root
+    from ethproof_tpu_torch.recursion.circuit import G_POSEIDON
+    from ethproof_tpu_torch.tables.all import TableSizes
+
+    per_table = []
+    add_stark_verify = root.add_stark_verify
+
+    def counted(vc, stark, *args, **kwargs):
+        before = len(vc.b.gates)
+        out = add_stark_verify(vc, stark, *args, **kwargs)
+        per_table.append((type(stark).__name__, len(vc.b.gates) - before))
+        return out
+
+    root.add_stark_verify = counted
+    times: dict = {}
+    try:
+        rc = root.build_tx_root(transfer_cpu_stark(OVERLAP_DISTINCT, PRODUCTION_SHAPE),
+                                TableSizes(**TRANSFER7_LOGS), standard_fast_config(),
+                                device="cuda", phase_times=times)
+    finally:
+        root.add_stark_verify = add_stark_verify
+    gates = rc.stark.circuit.gates
+    n_pos = sum(1 for g in gates if g.op == G_POSEIDON)
+    print(f"[root size] the full-width transfer root (TableSizes {TRANSFER7_LOGS}, "
+          f"PRODUCTION_SHAPE, standard_fast_config) on {card}'s host: {len(gates)} gates "
+          f"({n_pos} Poseidon), machine {rc.stark.num_rows} rows, degree 2^{rc.log_n}; host s "
+          + json.dumps({k: round(v, 3) for k, v in times["host"].items()})
+          + f"; host peak {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.1f} GiB")
+    print("[root size] gates per table verifier " + json.dumps(dict(per_table)))
+
+
+def phase_succinct_alone(card: str) -> None:
+    """`phase_succinct` with its CPU worker, and nothing else."""
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        phase_succinct(card, pool.submit(cpu_succinct_transfers))
+
+
 def phase_profile(card: str) -> None:
     """Where a 2^17-row proof spends its time: one warm-up proof, one under
     torch.profiler (device kernels by name, device busy share), then the
@@ -1193,13 +1472,14 @@ def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    modes = {"--profile": phase_profile, "--memory": phase_memory}
+    modes = {"--profile": phase_profile, "--memory": phase_memory,
+             "--succinct": phase_succinct_alone, "--root-size": phase_root_size}
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         phase_build()
         modes[sys.argv[1]](card)
         return 0
     if sys.argv[1:]:
-        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (--profile or --memory)",
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (--profile, --memory, --succinct or --root-size)",
               file=sys.stderr)
         return 2
     # the plain versions' digit matmuls run in float64, exact whatever the
@@ -1220,6 +1500,7 @@ def main() -> int:
     with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
         cpu_proofs = pool.submit(cpu_small_proofs)
         on_cpu = pool.submit(cpu_small_transfers)
+        on_cpu_succinct = pool.submit(cpu_succinct_transfers)
         reports = [run("kernels", phase_kernels, card),
                    run("kernels_bf16", phase_kernels_bf16, card)]
         run("adversarial", phase_adversarial, card)
@@ -1229,10 +1510,12 @@ def main() -> int:
         wrap_census = run("wrap", phase_wrap, card, memory_stark, memory_proof)
         del memory_stark, memory_proof
         run("small_transfer", phase_small_transfer, on_cpu)
+        succinct_census = run("succinct", phase_succinct, card, on_cpu_succinct)
     _, transfer_census = run("transfer7", phase_transfer7, card)
     launches, contract_census = run("contract", phase_contract, card)
     census = dict(transfer_census)
-    for shape, count in list(contract_census.items()) + list(wrap_census.items()):
+    for shape, count in (list(contract_census.items()) + list(wrap_census.items())
+                         + list(succinct_census.items())):
         census[shape] = census.get(shape, 0) + count
     run("census", phase_census, card, census)
     # base_dft: the contract path's i8 proof; base_dft_bf16: the 2^17-row

@@ -1,8 +1,7 @@
 """Contract-call transactions: the EVM machine as the tx kernel.
 
 Counterpart: ethproof_tpu/evm/contract.py:1 (a copy, with `device` and
-`phase_times` threaded through the provers and verifiers; the succinct
-mode's `root_proof` fields belong to recursion, which is not ported).
+`phase_times` threaded through the provers and verifiers).
 
 Reference equivalent: evm_arithmetization's kernel executing an
 arbitrary message call — `generate_txn_proof` on a witness whose tx
@@ -109,6 +108,8 @@ class ContractCallProof:
     to: bytes
     miner: bytes
     gas_used: int
+    # succinct mode: the root machine proof subsumes `multi`
+    root_proof: Optional[object] = None  # recursion.wrap.MachineProof
     # in-circuit state binding (second multi-proof; None = host tier)
     binding_multi: Optional[MultiProof] = None
     cb_pi: Optional[List[int]] = None
@@ -134,6 +135,8 @@ class InnerFrameProof:
     shape: E.EvmShape
     machine_pi: List[int]
     multi: Optional[MultiProof] = None
+    # succinct mode: a root machine proof subsumes `multi`
+    root_proof: Optional[object] = None  # recursion.wrap.MachineProof
 
 DEFAULT_LOG_ROWS = 10
 

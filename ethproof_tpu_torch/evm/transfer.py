@@ -223,6 +223,9 @@ class TxProof:
     # section; part of the statement (the verifier rebuilds the program
     # from (overlap, binding_shape))
     binding_shape: Optional[KernelShape] = None
+    # with recursion enabled, the succinct machine proof of the tx root
+    # circuit (recursion/root.py); `multi` is then None (subsumed)
+    root_proof: Optional[object] = None  # recursion.wrap.MachineProof
 
     @property
     def overlap(self) -> str:
@@ -452,9 +455,14 @@ def prove_transfer(
     )
 
 
-def verify_transfer(proof: TxProof, config: StarkConfig, device=None) -> bool:
+def verify_transfer(
+    proof: TxProof, config: StarkConfig, device=None, skip_stark: bool = False
+) -> bool:
     """PI re-derivation + the multi-table STARK + the host trie binding.
-    `device` is where the tables' fixed-column caps are committed."""
+    `device` is where the tables' fixed-column caps are committed.
+    skip_stark=True checks only the host-side layers (PI re-derivation +
+    trie binding) — used when a succinct block proof covers the STARK layer
+    once for all transactions (runtime/ops.verify_block)."""
     # 1. public inputs must re-derive from the witness (sender recovery,
     #    fee computation, pre-state reads)
     try:
@@ -469,12 +477,13 @@ def verify_transfer(proof: TxProof, config: StarkConfig, device=None) -> bool:
     #    from the statement (overlap pattern + binding shape); with a
     #    binding shape the STARK itself verifies the state-root
     #    transition against the PI roots
-    if proof.multi is None:
-        return False
-    if proof.binding_shape is not None and not isinstance(proof.binding_shape, KernelShape):
-        return False
-    cpu = transfer_cpu_stark(overlap_pattern(sender, recipient, miner), proof.binding_shape)
-    if not verify_all_tables(cpu, proof.pi_words, proof.multi, config, device):
-        return False
+    if not skip_stark:
+        if proof.multi is None:
+            return False
+        if proof.binding_shape is not None and not isinstance(proof.binding_shape, KernelShape):
+            return False
+        cpu = transfer_cpu_stark(overlap_pattern(sender, recipient, miner), proof.binding_shape)
+        if not verify_all_tables(cpu, proof.pi_words, proof.multi, config, device):
+            return False
     # 3. trie binding: PI words produce the claimed post state root
     return check_trie_binding(proof)

@@ -17,7 +17,11 @@ the binding's multi-proofs, the inner frames', the machine's shape
 statement (`cb_pi`, `cb_n_slots`, `cb_kshape` as above).
 `machine_proof_to_numpy` gives the fields of a recursion `MachineProof`
 (ethproof_tpu/recursion/wrap.py:34): its `StarkProof` as above, `log_n`,
-`variant`, `seam` and `digest`.
+`variant`, `seam` and `digest`; a transfer's or a contract call's
+`root_proof` (its tx root machine proof under recursion, when `multi` is
+None) is one such dict. `block_wrap_proof_to_numpy` gives the fields of a
+`BlockWrapProof` (ethproof_tpu/recursion/block.py:68): its machine proof
+as above and its statement preimage.
 The witness is not converted: a caller rebuilds it with either package's
 constructors. Uses numpy only.
 """
@@ -90,8 +94,26 @@ def machine_proof_to_numpy(mp) -> Dict[str, Any]:
     }
 
 
+def block_wrap_proof_to_numpy(bw) -> Dict[str, Any]:
+    return {
+        "mp": machine_proof_to_numpy(bw.mp),
+        "seam": [int(w) for w in bw.seam],
+        "digest": [int(w) for w in bw.digest],
+        "e_parent": [int(w) for w in bw.e_parent],
+        "is_base": int(bw.is_base),
+    }
+
+
 def multi_proof_to_numpy(multi) -> List[Dict[str, Any]]:
     return [proof_to_numpy(p) for p in multi.proofs]
+
+
+def _multi(m) -> Optional[List[Dict[str, Any]]]:
+    return None if m is None else multi_proof_to_numpy(m)
+
+
+def _root(mp) -> Optional[Dict[str, Any]]:
+    return None if mp is None else machine_proof_to_numpy(mp)
 
 
 def _kshape(shape) -> Optional[Dict[str, int]]:
@@ -102,7 +124,8 @@ def _kshape(shape) -> Optional[Dict[str, int]]:
 
 def tx_proof_to_numpy(tx) -> Dict[str, Any]:
     return {
-        "multi": multi_proof_to_numpy(tx.multi),
+        "multi": _multi(tx.multi),
+        "root_proof": _root(tx.root_proof),
         "pi_words": [int(w) for w in tx.pi_words],
         "sender": bytes(tx.sender),
         "recipient": bytes(tx.recipient),
@@ -112,24 +135,23 @@ def tx_proof_to_numpy(tx) -> Dict[str, Any]:
 
 
 def contract_call_to_numpy(proof) -> Dict[str, Any]:
-    def multi(m):
-        return None if m is None else multi_proof_to_numpy(m)
-
     return {
-        "multi": multi(proof.multi),
+        "multi": _multi(proof.multi),
+        "root_proof": _root(proof.root_proof),
         "shape": dataclasses.asdict(proof.shape),
         "machine_pi": [int(w) for w in proof.machine_pi],
         "sender": bytes(proof.sender),
         "to": bytes(proof.to),
         "miner": bytes(proof.miner),
         "gas_used": int(proof.gas_used),
-        "binding_multi": multi(proof.binding_multi),
+        "binding_multi": _multi(proof.binding_multi),
         "cb_pi": None if proof.cb_pi is None else [int(w) for w in proof.cb_pi],
         "cb_n_slots": int(proof.cb_n_slots),
         "cb_kshape": _kshape(proof.cb_kshape),
         "inner_frames": [
             {"address": bytes(f.address), "shape": dataclasses.asdict(f.shape),
-             "machine_pi": [int(w) for w in f.machine_pi], "multi": multi(f.multi)}
+             "machine_pi": [int(w) for w in f.machine_pi], "multi": _multi(f.multi),
+             "root_proof": _root(f.root_proof)}
             for f in proof.inner_frames or []
         ],
     }

@@ -46,8 +46,8 @@ class MachineProof:
     """A machine STARK proof plus the (static) identity of its circuit.
 
     `variant`, `seam` and `digest` are the aggregation ladder's prover-side
-    plumbing (recursion/aggregate.py and root.py of the counterpart, not
-    ported yet); a wrap leaves them at their defaults."""
+    plumbing (recursion/aggregate.py and root.py); a wrap leaves them at
+    their defaults."""
 
     proof: StarkProof
     log_n: int

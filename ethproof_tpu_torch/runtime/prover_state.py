@@ -50,3 +50,15 @@ class CircuitConfig:
             if key in env:
                 ranges[name] = parse_range(env[key])
         return cls(ranges)
+
+
+def artifact_dir() -> Optional[str]:
+    """Directory for deterministic prover artifacts (vkey caps, circuit
+    programs), the analogue of the reference's serialized circuits in
+    `./prover_state_<digest>`: ETHPROOF_ARTIFACT_DIR (created on first
+    use), else None (in-memory only)."""
+    d = os.environ.get("ETHPROOF_ARTIFACT_DIR")
+    if d:
+        os.makedirs(d, exist_ok=True)
+        return d
+    return None

@@ -16,8 +16,8 @@ device; the transcript runs on the host. What differs from the counterpart:
   accumulators, since field arithmetic is exact. There is no "jit" mode;
 - `lax.associative_scan` becomes a log-depth (Hillis-Steele) scan under
   field mul or add;
-- `fixed_cap` keeps only the in-memory cache: no artifact directory, no
-  mesh.
+- `fixed_cap` has the counterpart's disk cache under the artifact
+  directory, and no mesh.
 
 Tables with custom aux columns (the verifier machine's wire bus,
 recursion/machine.py) draw their aux challenges after the trace cap (and
@@ -34,6 +34,8 @@ Transcript (the verifier mirrors it exactly):
 
 from __future__ import annotations
 
+import hashlib
+import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -51,6 +53,7 @@ from ..gf.extension import GF2
 from ..hash import merkle
 from ..poly import four_step
 from ..poly import ntt as nttm
+from ..runtime.prover_state import artifact_dir
 from ..runtime.tracing import phase
 from .stark import (
     ConstraintConsumer,
@@ -107,13 +110,45 @@ def fixed_commitment(stark: Stark, n: int, config: StarkConfig, device=None) -> 
 
 
 def fixed_cap(stark: Stark, n: int, config: StarkConfig, device=None) -> np.ndarray:
-    """The vkey cap only, as the verifier consumes it (in-memory cache)."""
+    """The vkey cap only, as the verifier and the recursion compiler consume
+    it. Its bits are the same on every device. Looked up in order: the
+    in-memory cache; an already-committed full oracle of the same size (on
+    any device); the disk cache under `runtime.prover_state.artifact_dir()`,
+    a `vkcap_<digest>.npy` keyed by the fixed columns' bytes and (n,
+    rate_bits, cap_height, coset_shift), so new columns give a new file and
+    a corrupt one is rebuilt; else committed on `device` (None: the CUDA
+    card) and written to the disk cache atomically."""
     mem = stark.__dict__.setdefault("_torch_fixed_cap_cache", {})
     fri = config.fri_config
     key = (n, fri.rate_bits, fri.cap_height, fri.coset_shift)
-    if key not in mem:
-        mem[key] = fixed_commitment(stark, n, config, device).cap
-    return mem[key]
+    hit = mem.get(key)
+    if hit is not None:
+        return hit
+    for cm_key, cm in stark.__dict__.get("_torch_fixed_cm_cache", {}).items():
+        if cm_key[:4] == key:
+            mem[key] = cm.cap
+            return cm.cap
+    path = None
+    d = artifact_dir()
+    if d is not None:
+        h = hashlib.sha256()
+        h.update(np.ascontiguousarray(stark.fixed_columns(n)).tobytes())
+        h.update(repr(key).encode())
+        path = os.path.join(d, f"vkcap_{h.hexdigest()[:24]}.npy")
+        if os.path.exists(path):
+            try:
+                cap = np.load(path)
+                mem[key] = cap
+                return cap
+            except (OSError, ValueError, EOFError):
+                pass  # a corrupt file is rebuilt
+    cap = fixed_commitment(stark, n, config, device).cap
+    if path is not None:
+        tmp = f"{path}.{os.getpid()}.tmp.npy"  # np.save keeps the .npy suffix
+        np.save(tmp, cap)
+        os.replace(tmp, path)
+    mem[key] = cap
+    return cap
 
 
 @dataclass
@@ -438,8 +473,6 @@ def stark_prove(
 
 def _sweep_mode() -> str:
     """ETHPROOF_SWEEP: "ir" (default) or "eager" (see the module docstring)."""
-    import os
-
     mode = os.environ.get("ETHPROOF_SWEEP", "ir")
     if mode not in ("ir", "eager"):
         raise ValueError(f"ETHPROOF_SWEEP={mode!r}: expected 'ir' or 'eager'")

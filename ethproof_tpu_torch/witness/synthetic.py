@@ -13,11 +13,16 @@ tests/test_contract_call.py:39, `make_erc20_witness`).
   trie and a seeded token storage trie. Their post-state and receipts
   roots are computed from the accounts, the balance slots and the
   receipt, not by the prover.
+- The recursion ladder's fixtures: `transfer_chain(n_txs)` is
+  tests/test_succinct_block.py:73-118 (`make_transfer_chain`),
+  `noop_dummy(n_txs)` the no-op padding dummy at that chain's post state
+  (tests/test_succinct_dummy.py:29-52), and `withdrawal_dummy(withdrawals,
+  tamper_root)` tests/test_dummy_proofs.py:72-94 (`make_dummy`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -27,7 +32,7 @@ from ..evm.tx import private_key_to_address, sign_eip1559_tx, sign_legacy_tx
 from ..hash.keccak import keccak256
 from ..trie.nibbles import Nibbles
 from ..trie.trie import PartialTrie
-from .mpt import EMPTY_CODE_HASH, encode_account
+from .mpt import EMPTY_CODE_HASH, decode_account, encode_account
 from ..trie import rlp
 from .types import BlockMetadata, GenerationInputs, TrieInputs, TrieRoots
 
@@ -263,3 +268,94 @@ def seeded_erc20_transfer(n_accounts: int = 1000, n_holders: int = 1000, seed: i
                           calldata, key)
     return erc20_inputs(raw, key, accounts, token, 1, holders, recipient, amount, miner,
                         base_fee, min(max_fee, base_fee + priority), tamper_root)
+
+
+def _acct_key(addr: bytes) -> Nibbles:
+    return Nibbles.from_bytes(keccak256(addr))
+
+
+def _plain_account(nonce: int, balance: int) -> bytes:
+    return encode_account({"nonce": nonce, "balance": balance,
+                           "storage_root": PartialTrie().hash(), "code_hash": EMPTY_CODE_HASH})
+
+
+def _chain(n_txs: int) -> Tuple[List[GenerationInputs], PartialTrie]:
+    """`transfer_chain`'s witnesses and the state after its last one."""
+    sender = private_key_to_address(SMALL_KEY)
+    recipient, miner = b"\xbb" * 20, b"\xcc" * 20
+    state = PartialTrie()
+    # all balances stay < 2^6: the transfer kernel range-checks values
+    # against the arithmetic table (the fixture's arithmetic size is 2^6)
+    sender_bal, recv_bal, nonce = 40, 10, 4
+    state.insert(_acct_key(sender), _plain_account(nonce, sender_bal))
+    state.insert(_acct_key(recipient), _plain_account(0, recv_bal))
+    state.insert(_acct_key(miner), _plain_account(0, 7))
+    gis, gas = [], 0
+    for i in range(n_txs):
+        value = 3 + i
+        raw = sign_legacy_tx(nonce, 0, GAS, recipient, value, b"", SMALL_KEY, chain_id=1)
+        post = state.copy()
+        sender_bal -= value
+        recv_bal += value
+        nonce += 1
+        post.insert(_acct_key(sender), _plain_account(nonce, sender_bal))
+        post.insert(_acct_key(recipient), _plain_account(0, recv_bal))
+        gis.append(GenerationInputs(
+            txn_number_before=i, gas_used_before=gas, gas_used_after=gas + GAS,
+            signed_txn=raw, tries=TrieInputs(state_trie=state.copy()),
+            trie_roots_after=TrieRoots(state_root=post.hash()),
+            checkpoint_state_trie_root=state.hash(),
+            block_metadata=BlockMetadata(block_beneficiary=miner, block_chain_id=1,
+                                         block_base_fee=0),
+        ))
+        gas += GAS
+        state = post
+    return gis, state
+
+
+def transfer_chain(n_txs: int = 2) -> List[GenerationInputs]:
+    """A block of `n_txs` chained zero-fee legacy transfers from one
+    sender (tests/test_succinct_block.py:73-118): txn numbers, gas counters
+    and state roots are continuous across the seams (what the agg circuit
+    proves)."""
+    return _chain(n_txs)[0]
+
+
+def noop_dummy(n_txs: int = 2) -> GenerationInputs:
+    """The no-op padding dummy that follows `transfer_chain(n_txs)`: its
+    state is the chain's post state, its gas flat
+    (tests/test_succinct_dummy.py:29-52)."""
+    gis, state = _chain(n_txs)
+    last = gis[-1]
+    return GenerationInputs(
+        txn_number_before=n_txs, gas_used_before=last.gas_used_after,
+        gas_used_after=last.gas_used_after, signed_txn=None,
+        tries=TrieInputs(state_trie=state.copy()),
+        trie_roots_after=TrieRoots(state_root=state.hash()),
+        checkpoint_state_trie_root=gis[0].tries.state_trie.hash(),
+        block_metadata=last.block_metadata,
+    )
+
+
+def withdrawal_dummy(withdrawals: Sequence[Tuple[bytes, int]] = (),
+                     tamper_root: bool = False) -> GenerationInputs:
+    """A padding dummy over a three-account state that credits
+    `withdrawals` ((address, amount) pairs) in its post state
+    (tests/test_dummy_proofs.py:72-94); `tamper_root` claims a wrong post
+    state root."""
+    state = PartialTrie()
+    for addr, nonce, bal in ((b"\xaa" * 20, 4, 100), (b"\xbb" * 20, 0, 30),
+                             (b"\xcc" * 20, 1, 7)):
+        state.insert(_acct_key(addr), _plain_account(nonce, bal))
+    post = state.copy()
+    for addr, amt in withdrawals:
+        acc = decode_account(post.get(_acct_key(addr)))
+        acc["balance"] += amt
+        post.insert(_acct_key(addr), encode_account(acc))
+    root_after = keccak256(b"bad") if tamper_root else post.hash()
+    return GenerationInputs(
+        txn_number_before=2, gas_used_before=50000, gas_used_after=50000, signed_txn=None,
+        tries=TrieInputs(state_trie=state), trie_roots_after=TrieRoots(state_root=root_after),
+        checkpoint_state_trie_root=state.hash(), block_metadata=BlockMetadata(block_chain_id=1),
+        withdrawals=list(withdrawals),
+    )

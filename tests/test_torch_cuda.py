@@ -295,3 +295,23 @@ def test_small_machine_proof_on_card_equals_cpu(card):
     want = MachineProof(stark_prove(stark, trace, digest, cfg, device="cpu"), log_n)
     _assert_same(machine_proof_to_numpy(got), machine_proof_to_numpy(want))
     assert verify_machine(stark, got, cfg, device=card)
+
+
+def test_dummy_root_proof_on_card_equals_cpu(card):
+    """The no-op dummy's root (the recursion ladder's leaf circuit) proved
+    at its own degree under the succinct configuration (one query) on the
+    card equals the CPU plain path's proof field for field, statement
+    preimage included, and the port verifies it."""
+    from ethproof_tpu_torch.interop import machine_proof_to_numpy
+    from ethproof_tpu_torch.recursion import build_dummy_root, dummy_seam, verify_machine
+
+    tiny = StarkConfig(num_challenges=1, fri_config=FriConfig(
+        rate_bits=2, cap_height=0, proof_of_work_bits=0, num_query_rounds=1,
+        arity_bits=3, final_poly_bits=3))
+    root = build_dummy_root(tiny)
+    seam = dummy_seam(synthetic.noop_dummy(2))
+    got = root.prove(seam, tiny, device=card)
+    want = root.prove(seam, tiny, device="cpu")
+    assert got.log_n == root.log_n == 8
+    _assert_same(machine_proof_to_numpy(got), machine_proof_to_numpy(want))
+    assert verify_machine(root.stark, got, tiny, device=card)

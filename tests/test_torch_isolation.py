@@ -78,6 +78,12 @@ MODULES = [
     "ethproof_tpu_torch.recursion.machine",
     "ethproof_tpu_torch.recursion.verifier_circuit",
     "ethproof_tpu_torch.recursion.wrap",
+    "ethproof_tpu_torch.recursion.persist",
+    "ethproof_tpu_torch.recursion.root",
+    "ethproof_tpu_torch.recursion.aggregate",
+    "ethproof_tpu_torch.recursion.block",
+    "ethproof_tpu_torch.recursion.state",
+    "ethproof_tpu_torch.evm.withdrawal",
 ]
 
 
@@ -194,6 +200,34 @@ def test_contract_call_entry_points_refuse_the_cpu_by_default():
         sender=b"", to=b"", miner=b"", gas_used=0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         contract.verify_contract_call(unproved, StarkConfig())
+
+
+def test_recursion_entry_points_refuse_the_cpu_by_default():
+    """`recursion_state`, `tx_proof(recursion=...)` and `verify_block` raise
+    before any work without a card unless the caller passes device="cpu";
+    a state made for the CPU is its own cache entry."""
+    _cuda_absent()
+    from ethproof_tpu_torch.recursion.state import recursion_state
+    from ethproof_tpu_torch.runtime import ops
+    from ethproof_tpu_torch.fri.config import StarkConfig
+    from ethproof_tpu_torch.tables.all import TableSizes
+    from ethproof_tpu_torch.witness import synthetic
+
+    sizes = TableSizes(keccak=None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        recursion_state(sizes, StarkConfig())
+    state = recursion_state(sizes, StarkConfig(), device="cpu")
+    assert state.device == torch.device("cpu") and not state.roots
+    assert recursion_state(sizes, StarkConfig(), device="cpu") is state
+    for gi in (synthetic.transfer_chain(1)[0], synthetic.noop_dummy(1)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ops.tx_proof(gi, StarkConfig(), sizes, recursion=state)
+    assert not state.roots and state._dummy_root is None
+    gi = synthetic.noop_dummy(1)
+    bp = ops.block_proof(ops.agg_combine(ops.DummyProof(gi), ops.DummyProof(gi)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ops.verify_block(bp, StarkConfig(), recursion=state)
+    assert ops.verify_block(bp, StarkConfig(), device="cpu")
 
 
 def test_unknown_ntt_encoding_raises():
