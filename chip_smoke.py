@@ -41,28 +41,44 @@ and the script exits non-zero; no phase's failure is caught):
    succinct — the recursion ladder at the JAX package's succinct fixture
              (tests/test_succinct_block.py:42-53: one query, the CPU tier's
              five-table sizes): `transfer_chain(2)` and the no-op dummy at
-             its post state through `runtime.ops.tx_proof(...,
-             recursion=recursion_state(SIZES, TINY, device="cuda"))` (the
-             roots built: the distinct overlap's, the one kernel that fits
-             the 2^5-row CPU table, and the dummy's; two five-table transfer
-             proofs, equal to the CPU plain path's, and three root machine
-             proofs), `agg_combine`/`block_proof`, `fold_proofs` to level 2
-             and the block base wrap, i8, launch counts reset just before,
-             read just after: gates, rows and degree of every circuit, host
-             seconds per step and machine-proof phases of every rung, peak,
-             the digest SUCCINCT_DIGEST; `verify_block(recursion=state)`
-             accepts the block and rejects a changed leaf statement, a
-             flipped opening of the top proof and a changed top statement;
-6. transfer7 — the transfer path: an EIP-1559 transfer over a seeded
-             1,000-account state trie, proved by
-             `prove_transfer(gi, config, CircuitConfig(), binding="require")`,
-             the seven-table transfer with the in-circuit state-root binding
-             at the sizes the reference fits for it, i8 (launch counts reset
-             just before, read just after): seven table proofs, the
-             production binding shape, the fitted sizes, the recorded digest
-             TRANSFER7_DIGEST (every sweep through the IR executor), the
-             port's `verify_transfer`, and a flipped post state root rejected
-             by `verify_all_tables` alone;
+             its post state through `runtime.scheduler.prove_block(...,
+             TINY, sizes=SIZES, runtime=Runtime(max_retries=0),
+             recursion=True, block_wrap=True, device="cuda")` (`tx_proof`
+             tasks: the roots built are the distinct overlap's, the one
+             kernel that fits the 2^5-row CPU table, and the dummy's; two
+             five-table transfer proofs, equal to the CPU plain path's, and
+             three root machine proofs; `agg_combine`/`block_proof`; the
+             fold to level 2 as `agg_machine` tasks; the block base wrap),
+             i8, launch counts reset just before, read just after: gates,
+             rows and degree of every circuit, host seconds per step and
+             machine-proof phases of every rung, peak, the digest
+             SUCCINCT_DIGEST; the block goes through serde (bytes, seconds)
+             and `verify_block(recursion=state)`, with a state built anew
+             (the prover's cached state dropped: circuits compiled and vkeys
+             committed again) from the decoded proof's declared identity,
+             accepts the decoded block and rejects a changed leaf statement,
+             a flipped opening of the top proof and a changed top statement;
+6. cli     — the transfer path as a user runs it: an EIP-1559 transfer over
+             a seeded 1,000-account state trie, padded with a no-op dummy in
+             front as `rpc` pads a one-transaction block, written as
+             witness.json; `ethproof_tpu_torch.cli.main(["prove", "-i",
+             witness.json, "--persistence", "none"])` in this process with
+             stdout into proof.json (`prove_block` with the CircuitConfig()
+             ranges, through a Runtime that does not retry, one `tx_proof`
+             task per payload, `prove_transfer(binding="auto")`: the
+             seven-table transfer with the in-circuit state-root binding at
+             the sizes the reference fits for it; `agg_combine`,
+             `block_proof`, serde), i8 (launch counts reset just before,
+             read just after): the witness's and the proof's bytes, the
+             prove and serde seconds, each task's seconds, the transfer's
+             host steps and each table's phase seconds (commit, aux,
+             quotient, ...); the decoded transfer proof has seven
+             tables, the production binding shape, the fitted sizes and the
+             recorded digest TRANSFER7_WIRE_DIGEST (every sweep through the
+             IR executor); `cli verify` exits 0 on proof.json and 1 on a
+             copy whose top aggregate claims another post state root; a
+             flipped post state root of the decoded proof is rejected by
+             `verify_all_tables` alone;
 7. contract — the contract-call path: `seeded_erc20_transfer(1000, 1000,
              5)` (an EIP-1559 ERC-20 `transfer` over a 1,000-account state
              trie and a 1,000-holder token storage trie) through
@@ -75,7 +91,7 @@ and the script exits non-zero; no phase's failure is caught):
              state root refused by `check_contract_binding`, the host check
              that ends `prove_contract_call` (`tx_proof` raises its refusal
              as FatalError; the CPU tests drive that path);
-8. census  — both kernels timed at every base-DFT shape the transfer,
+8. census  — both kernels timed at every base-DFT shape the cli,
              contract, wrap and succinct proofs launched, beside their
              bounds, the launch floor and a one-tile call;
 9. result  — one JSON line listing every kernel (launches: base_dft's of
@@ -86,17 +102,17 @@ and the script exits non-zero; no phase's failure is caught):
 The full-width five-table transfer of slice 2 is no longer run: the
 five-table path stays driven at the CPU tier's sizes under i8 (the succinct
 phase's two transfers), and the kernels' bits are pinned by
-TRANSFER7_DIGEST and the census. Nor is the full-width seven-table
+TRANSFER7_WIRE_DIGEST and the census. Nor is the full-width seven-table
 transfer's bf16 re-proof: the wrap took its time, and the bf16 kernel is
 driven at full width by the Memory proof.
 
 `python3 chip_smoke.py --profile` instead builds the kernels and profiles
 one 2^17-row Memory proof (device kernels by name, idle share, layer
 times); `python3 chip_smoke.py --memory` proves the 2^17-row Memory table
-under each sweep (IR and direct) and the transfer and contract paths once
-each, and prints each phase's seconds and peak device memory;
-`python3 chip_smoke.py --succinct` builds the kernels and runs the succinct
-phase alone; `python3 chip_smoke.py --root-size` compiles the full-width
+under each sweep (IR and direct), runs the cli phase and proves the
+contract path once, and prints each phase's seconds and peak device memory;
+`python3 chip_smoke.py --succinct` and `--cli` build the kernels and run
+that phase alone; `python3 chip_smoke.py --root-size` compiles the full-width
 transfer root (the seven-table transfer path's verifier, at
 `standard_fast_config`) and prints its size. None prints a result line.
 
@@ -106,6 +122,7 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import multiprocessing
@@ -133,13 +150,20 @@ N_ACCOUNTS = 1000
 # kernels of commit 5308af5 and their tensor-core redesign alike; that run was
 # dropped when the contract path came, and TRANSFER7_DIGEST pins the bits.
 # the seven-table transfer's sizes as the reference's TableSizes.fit gives
-# them for `phase_transfer7`'s witness under the default CircuitConfig ranges
+# them for `phase_cli`'s witness under the default CircuitConfig ranges
 TRANSFER7_LOGS = dict(cpu=16, arithmetic=16, logic=12, bytepacking=9, memory=17, keccak=14,
                       keccak_sponge=9)
-# sha256 (`proof_digest`) of that proof (i8, and bf16 alike), recorded on an
-# NVIDIA H100 80GB HBM3 (700 W) by the commit that added it: it pins the bits
-# for later kernel work; it is not a reference check
-TRANSFER7_DIGEST = "91aa11c62fc5069a4337ca142abe4a07a56b49cdbc77ff48c768af686318462f"
+# sha256 (`proof_digest`) of that proof as a proof file holds it: every
+# `FriProof.query_indices` None (the wire format does not carry them; serde
+# reads them back as None). It pins the bits for later kernel work; it is
+# not a reference check. Recorded on an NVIDIA H100 80GB HBM3 (700 W) by the
+# commit that added it, from the direct `prove_transfer(gi, standard_fast_
+# config(), CircuitConfig(), binding="require", device="cuda")` proof of
+# `phase_cli`'s transaction (i8), in the run that showed that proof's digest
+# with its query indices to be the one the earlier commits recorded for it,
+# 91aa11c62fc5069a4337ca142abe4a07a56b49cdbc77ff48c768af686318462f (i8 and
+# bf16 alike); `phase_cli` holds the decoded proof of `cli prove` against it
+TRANSFER7_WIRE_DIGEST = "63f43c02747691ad673603ca0047e9b3884c22b70453179c06a4540d9c4c0c0a"
 N_HOLDERS = 1000  # the token's balance slots in the contract path's witness
 # the contract path's sizes as the reference fits them for its witness
 # (tests/test_torch_contract.py holds the port's fit equal to the reference's):
@@ -814,21 +838,47 @@ def rung_line(name: str, wall, times: dict) -> str:
             + json.dumps({k: round(v, 3) for k, v in machine.items()}))
 
 
+@contextlib.contextmanager
+def timed_calls(owner, name: str, log: list):
+    """Patch `owner.name` so that each call gets its own `phase_times` dict
+    and is timed: log receives (wall seconds, times, result) per call."""
+    import torch
+
+    fn = getattr(owner, name)
+
+    def timed(*args, **kwargs):
+        times = kwargs.setdefault("phase_times", {})
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        log.append((time.perf_counter() - t0, times, out))
+        return out
+
+    setattr(owner, name, timed)
+    try:
+        yield
+    finally:
+        setattr(owner, name, fn)
+
+
 def phase_succinct(card: str, on_cpu_future) -> dict:
     """The recursion ladder on the card, at the JAX package's succinct
-    fixture: `transfer_chain(2)` and the no-op dummy at its post state, each
-    through `runtime.ops.tx_proof(gi, TINY, SIZES, recursion=state,
-    device="cuda")` (a five-table transfer proof and its tx root machine
-    proof; the dummy's root), the block composed as the in-process half of
-    the JAX package's `prove_block(recursion=True)` does (`agg_combine`,
-    `block_proof`), the three roots folded to level 2 (`fold_proofs`, padded
-    to four) and the block base wrap (`build_block_wraps(...).prove_base`);
-    i8, launch counts reset just before, read just after. The two transfer
-    multi-proofs equal the CPU plain path's (`cpu_succinct_transfers`);
-    `verify_block(..., recursion=state)` accepts the block and rejects a
-    changed leaf statement, a flipped opening of the top proof and a changed
-    top statement; the top proof and wrap have the digest SUCCINCT_DIGEST
-    -> the base-DFT census of the phase."""
+    fixture: `transfer_chain(2)` and the no-op dummy at its post state
+    through `scheduler.prove_block(payloads, TINY, sizes=SIZES,
+    runtime=Runtime(max_retries=0), recursion=True, block_wrap=True,
+    device="cuda")`: each payload a `tx_proof` task (a five-table transfer
+    proof and its tx root machine proof; the dummy's root), `agg_combine`
+    and `block_proof`, the three roots folded to level 2 (padded to four,
+    `agg_machine` tasks) and the block base wrap; i8, launch counts reset
+    just before, read just after. The two transfer multi-proofs equal the
+    CPU plain path's (`cpu_succinct_transfers`); the top proof and wrap
+    have the digest SUCCINCT_DIGEST; the block goes through serde, and
+    `verify_block(..., recursion=state)`, with a state built from the
+    decoded proof's declared identity as `cli verify` does (the prover's
+    cached state dropped first, so its circuits are compiled and their
+    vkeys committed anew), accepts the decoded block and rejects a changed
+    leaf statement, a flipped opening of the top proof and a changed top
+    statement -> the base-DFT census of the phase."""
     import copy
     import os
 
@@ -838,8 +888,10 @@ def phase_succinct(card: str, on_cpu_future) -> dict:
     from ethproof_tpu_torch.interop import (block_wrap_proof_to_numpy,
                                             machine_proof_to_numpy, multi_proof_to_numpy)
     from ethproof_tpu_torch.poly import base_dft as bd
-    from ethproof_tpu_torch.recursion import build_block_wraps, fold_proofs, recursion_state
-    from ethproof_tpu_torch.runtime import ops
+    from ethproof_tpu_torch.recursion import aggregate, recursion_state
+    from ethproof_tpu_torch.recursion import state as recursion_states
+    from ethproof_tpu_torch.recursion.block import BlockWraps, build_block_wraps
+    from ethproof_tpu_torch.runtime import ops, scheduler, serde
     from ethproof_tpu_torch.tables.all import TableSizes
     from ethproof_tpu_torch.witness import synthetic
 
@@ -851,9 +903,7 @@ def phase_succinct(card: str, on_cpu_future) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    t_block = time.perf_counter()
-    state = recursion_state(sizes, config, device="cuda")
-    multis = []
+    multis, leaves, aggs, wraps_log = [], [], [], []
     prove_transfer = ops.prove_transfer
 
     def recording(*args, **kwargs):  # keeps the multi-proof that the root subsumes
@@ -862,64 +912,52 @@ def phase_succinct(card: str, on_cpu_future) -> dict:
         return proof
 
     ops.prove_transfer = recording
-    leaves = []
+    t_block = time.perf_counter()
     try:
-        for i, gi in enumerate(payloads):
-            times: dict = {}
-            t0 = time.perf_counter()
-            leaves.append(ops.tx_proof(gi, config, sizes, recursion=state, device="cuda",
-                                       phase_times=times))
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            kind = "transfer" if gi.signed_txn else "no-op dummy"
-            tables = {k: round(sum(v for p, v in ph.items() if p != "ir_plan"), 3)
-                      for k, ph in times.items() if k not in ("host", "root")}
-            print(f"[succinct] tx_proof {i} ({kind}) on {card}: {wall:.3f} s; variant "
-                  f"{leaves[-1].root_proof.variant}; table proofs s {json.dumps(tables)}, "
-                  f"host s {json.dumps({k: round(v, 3) for k, v in times.get('host', {}).items()})}")
-            print("[succinct]   " + rung_line("its root proof", None, times["root"]))
+        with timed_calls(ops, "tx_proof", leaves), \
+                timed_calls(aggregate.AggCircuit, "prove", aggs), \
+                timed_calls(BlockWraps, "prove_base", wraps_log):
+            bp = scheduler.prove_block(
+                payloads, config, sizes=sizes, runtime=scheduler.Runtime(max_retries=0),
+                recursion=True, block_wrap=True, device="cuda")
+        torch.cuda.synchronize()
     finally:
         ops.prove_transfer = prove_transfer
+    block_s = time.perf_counter() - t_block
+    launches, census = dict(bd.LAUNCHES), dict(bd.CENSUS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for i, (wall, times, leaf) in enumerate(leaves):
+        kind = "transfer" if leaf.gen_inputs.signed_txn else "no-op dummy"
+        tables = {k: round(sum(v for p, v in ph.items() if p != "ir_plan"), 3)
+                  for k, ph in times.items() if k not in ("host", "root")}
+        print(f"[succinct] tx_proof task {i} ({kind}) on {card}: {wall:.3f} s; variant "
+              f"{leaf.root_proof.variant}; table proofs s {json.dumps(tables)}, "
+              f"host s {json.dumps({k: round(v, 3) for k, v in times.get('host', {}).items()})}")
+        print("[succinct]   " + rung_line("its root proof", None, times["root"]))
+    state = recursion_state(sizes, config, device="cuda")
     for name, times in state.build_times.items():
         root = state.roots.get(name.split("/")[-1]) if name.startswith("txroot") \
             else state.dummy_root()
         print("[succinct] built " + circuit_line(name, root.stark, state.root_log_n, times))
-    agg = ops.agg_combine(ops.agg_combine(leaves[0], leaves[1]), leaves[2])
-    bp = ops.block_proof(agg)
-    roots = [leaf.root_proof for leaf in leaves]
-    fold_times: dict = {}
-    t0 = time.perf_counter()
-    top, level = fold_proofs(state.ladder, roots, config, phase_times=fold_times)
-    torch.cuda.synchronize()
-    fold_s = time.perf_counter() - t0
     for lv in sorted(state.ladder.build_times):
         stark_lv, log_n = state.ladder.level_shape(lv)
         print("[succinct] built " + circuit_line(f"agg level {lv}", stark_lv[0], log_n,
                                                  state.ladder.build_times[lv]))
-    for lv, proofs in sorted(fold_times.items()):
-        for j, times in enumerate(proofs):
-            print("[succinct] " + rung_line(f"agg level {lv} proof {j}", times["wall"], times))
-    print(f"[succinct] fold of {len(roots)} roots to level {level}: {fold_s:.3f} s")
-    if level != 2:
-        raise AssertionError(f"three leaves folded to level {level}, not 2")
-    bp.succinct = ops.SuccinctBlockProof(top=top, level=level, sizes=sizes)
-    t0 = time.perf_counter()
+    for j, (wall, times, _) in enumerate(aggs):
+        print("[succinct] " + rung_line(f"agg_machine task {j}", wall, times))
+    level = bp.succinct.level
     wraps = build_block_wraps(state.ladder, level, config)
     for name, times in wraps.build_times.items():
         circ = wraps.base if name == "base" else wraps.step
         print("[succinct] built " + circuit_line(f"block {name}", circ.stark, wraps.log_n, times))
-    print(f"[succinct] block wraps built in {time.perf_counter() - t0:.3f} s, degree "
-          f"2^{wraps.log_n}")
-    times = {}
-    t0 = time.perf_counter()
-    bp.succinct.block_wrap = wraps.prove_base(top, phase_times=times)
-    torch.cuda.synchronize()
-    print("[succinct] " + rung_line("block base proof", time.perf_counter() - t0, times))
-    block_s = time.perf_counter() - t_block
-    launches, census = dict(bd.LAUNCHES), dict(bd.CENSUS)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[succinct] the block (3 payloads, level-2 fold, base wrap) proved on {card} in "
+    for wall, times, _ in wraps_log:
+        print("[succinct] " + rung_line("block base proof", wall, times))
+    print(f"[succinct] prove_block (3 payloads, level-{level} fold, base wrap) on {card} in "
           f"{block_s:.3f} s, launches {launches}, peak device memory {peak_gb:.2f} GB")
+    if len(leaves) != 3 or level != 2 or len(aggs) != 3 or len(wraps_log) != 1:
+        raise AssertionError(f"{len(leaves)} tx_proof calls folded to level {level} in "
+                             f"{len(aggs)} agg proofs and {len(wraps_log)} wraps, not 3 "
+                             f"leaves to level 2 in 3 and 1")
     if launches["base_dft"] <= 0 or launches["base_dft_bf16"] != 0:
         raise AssertionError(f"the ladder under i8 launched {launches}")
     on_cpu, cpu_s = on_cpu_future.result()
@@ -929,17 +967,35 @@ def phase_succinct(card: str, on_cpu_future) -> dict:
                              "the CPU plain path's")
     print(f"[succinct] its two five-table transfer proofs equal the CPU plain path's field for "
           f"field (CPU {cpu_s:.2f} s in the worker process)")
-    digest = proof_digest({"top": machine_proof_to_numpy(top),
+    digest = proof_digest({"top": machine_proof_to_numpy(bp.succinct.top),
                            "block_wrap": block_wrap_proof_to_numpy(bp.succinct.block_wrap)})
     print(f"[succinct] top proof and block wrap sha256 {digest}")
     if SUCCINCT_DIGEST is not None and digest != SUCCINCT_DIGEST:
         raise AssertionError(f"the succinct block's digest {digest} differs from the recorded "
                              f"one ({SUCCINCT_DIGEST})")
     t0 = time.perf_counter()
-    ok = ops.verify_block(bp, config, recursion=state, device="cuda")
-    print(f"[succinct] verify_block(recursion=state): {ok} in {time.perf_counter() - t0:.2f} s")
+    text = json.dumps(serde.block_proof_to_json(bp))
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = serde.block_proof_from_json(json.loads(text))
+    print(f"[succinct] serde: {len(text)} bytes of JSON, encoded in {encode_s:.3f} s, decoded "
+          f"in {time.perf_counter() - t0:.3f} s")
+    s = back.succinct
+    # the verifier's own state: without the prover's cached one, its
+    # circuits are compiled and their vkeys committed from what the file
+    # declares (no artifact dir: nothing comes from disk either)
+    recursion_states._STATES.clear()
+    t0 = time.perf_counter()
+    verifier_state = recursion_state(s.sizes, config, binding_shape=s.binding_shape,
+                                     evm_shapes=s.evm_shapes, wd_counts=s.wd_counts,
+                                     device="cuda")
+    if verifier_state is state:
+        raise AssertionError("the verifier reused the prover's recursion state")
+    ok = ops.verify_block(back, config, recursion=verifier_state, device="cuda")
+    print(f"[succinct] verify_block(recursion=state) of the decoded block, the state built "
+          f"anew from its declared identity: {ok} in {time.perf_counter() - t0:.2f} s")
     if not ok:
-        raise AssertionError("the succinct block does not verify")
+        raise AssertionError("the decoded succinct block does not verify")
 
     def leaf_statement(b):
         b.agg.left.left.gen_inputs.trie_roots_after.state_root = keccak256(b"no")
@@ -954,10 +1010,10 @@ def phase_succinct(card: str, on_cpu_future) -> dict:
     for name, tamper in (("a changed leaf statement", leaf_statement),
                          ("one flipped opening of the top proof", top_opening),
                          ("a changed top statement", top_statement)):
-        bad = copy.deepcopy(bp)
+        bad = copy.deepcopy(back)
         tamper(bad)
         t0 = time.perf_counter()
-        rejected = not ops.verify_block(bad, config, recursion=state, device="cuda")
+        rejected = not ops.verify_block(bad, config, recursion=verifier_state, device="cuda")
         print(f"[succinct] verify_block with {name}: "
               f"{'rejected' if rejected else 'ACCEPTED'} in {time.perf_counter() - t0:.2f} s")
         if not rejected:
@@ -1025,7 +1081,7 @@ def phase_census(card: str, census: dict) -> None:
               f"base_dft_bf16 {one_tile['bf16', n]:.4f} ms")
     per_proof = {}
     print(f"[census] {len(shapes)} shapes, {sum(s[3] for s in shapes)} launches in the "
-          f"transfer7, contract, wrap and succinct proofs, on {card}")
+          f"cli, contract, wrap and succinct proofs, on {card}")
     for rows, n, inverse, count in shapes:
         log_n = n.bit_length() - 1
         a = torch.randint(0, 1 << 62, (rows, n), dtype=torch.int64, device="cuda")
@@ -1061,7 +1117,7 @@ def phase_census(card: str, census: dict) -> None:
             raise AssertionError(f"({rows}, {n}) inverse={inverse}: base_dft != base_dft_bf16")
         del a, got
     for name, tot in per_proof.items():
-        print(f"[census] {name} in the transfer7, contract, wrap and succinct proofs: {tot['ms']:.3f} ms of kernel "
+        print(f"[census] {name} in the cli, contract, wrap and succinct proofs: {tot['ms']:.3f} ms of kernel "
               f"time, bound "
               f"{tot['bound_ms']:.3f} ms, launches x (ms - bound) "
               f"{tot['ms'] - tot['bound_ms']:.3f} ms")
@@ -1093,36 +1149,138 @@ def transfer7_inputs():
     return gi, standard_fast_config(), time.perf_counter() - t0
 
 
-def prove_transfer7(gi, config, card: str, tag: str):
-    """One main-path proof on the card under i8, launch counts reset just
-    before and read just after -> (proof, launches, census)."""
+def padded_witness(gi):
+    """The one-transaction block as `rpc` writes it: a no-op dummy over the
+    initial tries in front of the transaction (`gather_witness`'s padding)."""
+    from ethproof_tpu_torch.witness import padding
+
+    tries = padding.PartialTrieState(
+        state=gi.tries.state_trie, txn=gi.tries.transactions_trie,
+        receipt=gi.tries.receipts_trie, storage=dict(gi.tries.storage_tries))
+    extra = padding.ExtraBlockData(checkpoint_state_trie_root=gi.checkpoint_state_trie_root)
+    ir = [gi]
+    padding.pad_gen_inputs_with_dummy_inputs_if_needed(
+        ir, gi.block_metadata, gi.block_hashes, extra, extra, tries, tries, False)
+    return ir
+
+
+def run_cli(argv, stdout_path: str) -> int:
+    """`ethproof_tpu_torch.cli.main(argv)` in this process (the launch
+    counters and census stay readable), its stdout into `stdout_path`."""
+    import contextlib
+
+    from ethproof_tpu_torch import cli
+
+    with open(stdout_path, "w") as f, contextlib.redirect_stdout(f):
+        return cli.main(argv)
+
+
+@contextlib.contextmanager
+def no_retries():
+    """Every `scheduler.Runtime` made inside runs each task once, whatever
+    its caller asks (`cli prove` builds one with the default max_retries=2):
+    a failed task raises at once and is not retried and hidden."""
+    from ethproof_tpu_torch.runtime import scheduler
+
+    init = scheduler.Runtime.__init__
+
+    def once(self, num_workers=1, max_retries=0):
+        init(self, num_workers, max_retries=0)
+
+    scheduler.Runtime.__init__ = once
+    try:
+        yield
+    finally:
+        scheduler.Runtime.__init__ = init
+
+
+def phase_cli(card: str):
+    """The main path through the CLI, as a user runs it: the transfer7
+    witness padded as `rpc` pads a one-transaction block, written with
+    `witness_to_json`; `cli prove -i witness.json --persistence none` (in
+    this process, stdout into proof.json: `prove_block` with the
+    CircuitConfig() ranges through the in-memory Runtime, made without
+    retries, one `tx_proof` task per payload, `prove_transfer(binding=
+    "auto")`, `agg_combine`, `block_proof`, serde), i8, launch counts reset
+    just before, read just after; each task's seconds, the transfer's host
+    steps and each table's phases are printed. The decoded
+    transfer proof has seven tables at TRANSFER7_LOGS, the production
+    binding shape and the digest TRANSFER7_WIRE_DIGEST; `cli verify` returns
+    0 on the file and 1 on a copy whose top aggregate claims another post
+    state root (refused by the host's seam check before any STARK is
+    verified); a flipped post state root is rejected by `verify_all_tables`
+    alone -> (base_dft launches, base-DFT census) of the prove."""
+    import copy
+    import os
+    import tempfile
+
     import torch
 
+    from ethproof_tpu_torch.evm import transfer as tr
     from ethproof_tpu_torch.evm.binding import PRODUCTION_SHAPE
-    from ethproof_tpu_torch.evm.transfer import prove_transfer
+    from ethproof_tpu_torch.interop import multi_proof_to_numpy
     from ethproof_tpu_torch.poly import base_dft as bd
-    from ethproof_tpu_torch.runtime.prover_state import CircuitConfig
+    from ethproof_tpu_torch.runtime import ops, serde
+    from ethproof_tpu_torch.tables.all import verify_all_tables
+    from ethproof_tpu_torch.tables.cpu import pi_limbs
+    from ethproof_tpu_torch.witness.types import witness_to_json
 
+    gi, config, witness_s = transfer7_inputs()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    witness, proof_path = os.path.join(tmp, "witness.json"), os.path.join(tmp, "proof.json")
+    t0 = time.perf_counter()
+    ir = padded_witness(gi)
+    with open(witness, "w") as f:
+        json.dump(witness_to_json(ir), f)
+    print(f"[cli] witness: the {N_ACCOUNTS}-account transfer ({witness_s:.2f} s) after a no-op "
+          f"dummy, {len(ir)} payloads, witness.json {os.path.getsize(witness)} bytes, padded "
+          f"and written in {time.perf_counter() - t0:.2f} s")
     bd.ENCODING = "i8"
-    times: dict = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    leaves = []
     t0 = time.perf_counter()
-    proof = prove_transfer(gi, config, CircuitConfig(), binding="require", device="cuda",
-                           phase_times=times)
+    with no_retries(), timed_calls(ops, "tx_proof", leaves):
+        rc = run_cli(["prove", "-i", witness, "--persistence", "none"], proof_path)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    prove_s = time.perf_counter() - t0
     launches, census = dict(bd.LAUNCHES), dict(bd.CENSUS)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if rc != 0:
+        raise AssertionError(f"cli prove exited {rc}")
+    print(f"[cli] cli prove -i witness.json on {card}: {prove_s:.3f} s, proof.json "
+          f"{os.path.getsize(proof_path)} bytes, launches {launches}, peak device memory "
+          f"{peak_gb:.2f} GB")
+    if len(leaves) != len(ir):
+        raise AssertionError(f"{len(leaves)} tx_proof calls for {len(ir)} payloads")
+    for i, (wall, times, leaf) in enumerate(leaves):
+        host = times.get("host", {})
+        tables = {k: v for k, v in times.items() if k != "host"}
+        print(f"[cli] tx_proof task {i} "
+              f"({'transfer' if leaf.gen_inputs.signed_txn else 'no-op dummy'}): {wall:.3f} s; "
+              f"host seconds {sum(host.values()):.3f}: "
+              + json.dumps({k: round(v, 4) for k, v in host.items()}))
+        if tables:
+            print_phases(f"[cli] task {i}", tables)
+    t0 = time.perf_counter()
+    with open(proof_path) as f:
+        text = f.read()
+    bp = serde.block_proof_from_json(json.loads(text))
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = json.dumps(serde.block_proof_to_json(bp))
+    encode_s = time.perf_counter() - t0
+    print(f"[cli] serde: proof.json decoded in {decode_s:.3f} s, encoded again in "
+          f"{encode_s:.3f} s ({'the same bytes' if again == text else 'OTHER BYTES'})")
+    if again != text:
+        raise AssertionError("the decoded proof does not encode to the same bytes")
+    dummy, proof = bp.agg.left, bp.agg.right
+    if dummy.gen_inputs.signed_txn is not None or not isinstance(proof, tr.TxProof):
+        raise AssertionError("the block is not the padded dummy and the transfer")
     logs = dict(zip(TRANSFER7_LOGS, (p.degree_bits for p in proof.multi.proofs)))
-    print(f"[{tag}] prove_transfer(CircuitConfig(), binding=\"require\"), i8, on {card}: "
-          f"{wall:.3f} s, fitted log2 sizes {logs}, binding shape {proof.binding_shape}, "
-          f"launches {launches}, peak device memory {peak_gb:.2f} GB")
-    host = times.get("host", {})
-    print(f"[{tag}] host seconds {sum(host.values()):.3f}: " + json.dumps(
-        {k: round(v, 4) for k, v in host.items()}))
-    print_phases(f"[{tag}]", {k: v for k, v in times.items() if k != "host"})
+    print(f"[cli] the transfer's proof: {len(proof.multi.proofs)} tables, fitted log2 sizes "
+          f"{logs}, binding shape {proof.binding_shape}")
     if len(proof.multi.proofs) != 7:
         raise AssertionError(f"the main path made {len(proof.multi.proofs)} table proofs, not 7")
     if proof.binding_shape != PRODUCTION_SHAPE:
@@ -1131,36 +1289,27 @@ def prove_transfer7(gi, config, card: str, tag: str):
         raise AssertionError(f"fitted sizes {logs} != the reference's {TRANSFER7_LOGS}")
     if launches["base_dft"] <= 0 or launches["base_dft_bf16"] != 0:
         raise AssertionError(f"the main path under i8 launched {launches}")
-    return proof, launches, census
-
-
-def phase_transfer7(card: str):
-    """The main path, proved under i8 (digest, verified, a flipped post
-    root rejected) -> (base_dft launches, base-DFT census) of that proof.
-    Its bf16 encoding is checked against the CPU at the CPU tier's sizes
-    (`phase_small_transfer`) and at full width on the Memory proof
-    (`phase_slice`)."""
-    import copy
-
-    from ethproof_tpu_torch.evm import transfer as tr
-    from ethproof_tpu_torch.interop import multi_proof_to_numpy
-    from ethproof_tpu_torch.tables.all import verify_all_tables
-    from ethproof_tpu_torch.tables.cpu import pi_limbs
-
-    gi, config, witness_s = transfer7_inputs()
-    print(f"[transfer7] witness: the same {N_ACCOUNTS}-account transfer, built in "
-          f"{witness_s:.2f} s")
-    proof, launches, census = prove_transfer7(gi, config, card, "transfer7")
     digest = proof_digest(multi_proof_to_numpy(proof.multi))
-    print(f"[transfer7] proof sha256 {digest}")
-    if digest != TRANSFER7_DIGEST:
-        raise AssertionError(f"the seven-table proof's digest {digest} differs from the "
-                             f"recorded proof's ({TRANSFER7_DIGEST})")
+    print(f"[cli] decoded proof sha256 {digest}")
+    if TRANSFER7_WIRE_DIGEST is not None and digest != TRANSFER7_WIRE_DIGEST:
+        raise AssertionError(f"the decoded seven-table proof's digest {digest} differs from "
+                             f"the recorded proof's ({TRANSFER7_WIRE_DIGEST})")
     t0 = time.perf_counter()
-    ok = tr.verify_transfer(proof, config, device="cuda")
-    print(f"[transfer7] port verify_transfer: {ok} in {time.perf_counter() - t0:.2f} s")
-    if not ok:
-        raise AssertionError("the seven-table transfer proof does not verify")
+    rc = run_cli(["verify", "-i", proof_path], os.path.join(tmp, "verify.out"))
+    print(f"[cli] cli verify -i proof.json: exit {rc} in {time.perf_counter() - t0:.2f} s")
+    if rc != 0:
+        raise AssertionError(f"cli verify exited {rc} on the proof")
+    tampered = json.loads(text)
+    tampered["agg"]["state_root_after"] = bytes(32).hex()
+    bad_path = os.path.join(tmp, "tampered.json")
+    with open(bad_path, "w") as f:
+        json.dump(tampered, f)
+    t0 = time.perf_counter()
+    rc = run_cli(["verify", "-i", bad_path], os.path.join(tmp, "verify_bad.out"))
+    print(f"[cli] cli verify of the file with the top aggregate's state_root_after zeroed: exit "
+          f"{rc} in {time.perf_counter() - t0:.2f} s")
+    if rc != 1:
+        raise AssertionError(f"cli verify exited {rc} on the tampered file, not 1")
     # the post state root flipped: the STARK alone (no host trie check)
     # rejects, whether the CPU proof keeps its public inputs (they no longer
     # match) or claims the flipped ones (its transcript and constraints fail)
@@ -1174,8 +1323,8 @@ def phase_transfer7(card: str):
     for name, multi in (("as proved", proof.multi), ("relabelled", relabelled)):
         t0 = time.perf_counter()
         rejected = not verify_all_tables(cpu, bad, multi, config, device="cuda")
-        print(f"[transfer7] verify_all_tables with PI_STATE_ROOT_POST flipped, CPU proof "
-              f"{name}: {'rejected' if rejected else 'ACCEPTED'} in "
+        print(f"[cli] verify_all_tables of the decoded proof with PI_STATE_ROOT_POST flipped, "
+              f"CPU proof {name}: {'rejected' if rejected else 'ACCEPTED'} in "
               f"{time.perf_counter() - t0:.2f} s")
         if not rejected:
             raise AssertionError(f"a flipped post state root passed verify_all_tables ({name})")
@@ -1442,10 +1591,7 @@ def phase_memory(card: str) -> None:
         print(f"[memory] MemoryStark 2^{LOG_ROWS}, ETHPROOF_SWEEP={mode}: proof sha256 "
               f"{proof_digest([proof_to_numpy(proof)])}")
         del proof
-    gi, config, _ = transfer7_inputs()
-    proof, _, _ = prove_transfer7(gi, config, card, "memory")
-    print(f"[memory] transfer7 proof sha256 {proof_digest(multi_proof_to_numpy(proof.multi))}")
-    del proof
+    phase_cli(card)
     gi, config, _ = contract_inputs()
     proof, _, _ = prove_contract(gi, config, card, "memory")
     prove.phase = multi.phase = timed_phase
@@ -1473,14 +1619,15 @@ def main() -> int:
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     modes = {"--profile": phase_profile, "--memory": phase_memory,
-             "--succinct": phase_succinct_alone, "--root-size": phase_root_size}
+             "--succinct": phase_succinct_alone, "--root-size": phase_root_size,
+             "--cli": phase_cli}
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         phase_build()
         modes[sys.argv[1]](card)
         return 0
     if sys.argv[1:]:
-        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (--profile, --memory, --succinct or --root-size)",
-              file=sys.stderr)
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (--profile, --memory, --succinct, "
+              "--root-size or --cli)", file=sys.stderr)
         return 2
     # the plain versions' digit matmuls run in float64, exact whatever the
     # float32 setting: every comparison below runs with TF32 allowed
@@ -1511,7 +1658,7 @@ def main() -> int:
         del memory_stark, memory_proof
         run("small_transfer", phase_small_transfer, on_cpu)
         succinct_census = run("succinct", phase_succinct, card, on_cpu_succinct)
-    _, transfer_census = run("transfer7", phase_transfer7, card)
+    _, transfer_census = run("cli", phase_cli, card)
     launches, contract_census = run("contract", phase_contract, card)
     census = dict(transfer_census)
     for shape, count in (list(contract_census.items()) + list(wrap_census.items())

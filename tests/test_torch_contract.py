@@ -9,7 +9,8 @@
   proof's) equal the reference's, for the CPU tier's witness and for
   `seeded_erc20_transfer`.
 - `runtime.ops.tx_proof` dispatches a transfer and a contract call as the
-  reference does; `agg_combine` and `block_proof` chain and refuse a
+  reference does, and with a recursion state proves each one's root in
+  place of its multi-proof; `agg_combine` and `block_proof` chain and refuse a
   broken seam as the reference's do.
 - Slow tier: the port's whole `prove_contract_call` on the CPU tier's
   witness verifies under `verify_contract_call`, and a forged storage PI
@@ -17,6 +18,7 @@
 """
 
 import dataclasses
+import types
 
 import pytest
 import torch
@@ -34,6 +36,7 @@ from ethproof_tpu_torch.evm import contract as tcon
 from ethproof_tpu_torch.evm.binding import PRODUCTION_SHAPE as T_PRODUCTION
 from ethproof_tpu_torch.evm.binding import KernelShape as TKernelShape
 from ethproof_tpu_torch.evm.tx import decode_tx as t_decode_tx
+from ethproof_tpu_torch.recursion import root as troot
 from ethproof_tpu_torch.runtime import ops as tops
 from ethproof_tpu_torch.tables import all as tall
 from ethproof_tpu_torch.witness import synthetic
@@ -190,8 +193,9 @@ def test_tx_proof_dispatches_as_the_reference(monkeypatch):
     """A transfer goes to `prove_transfer` and a contract call to
     `prove_contract_call` (binding "auto"; a CircuitConfig leaves the
     machine's sizes to the fit), in both packages; a padding dummy is a
-    host-checked DummyProof; the provers' deterministic failures become
-    FatalError."""
+    host-checked DummyProof; with a recursion state (a stub here) the
+    binding and sizes follow the state and the leaf carries its root proof;
+    the provers' deterministic failures become FatalError."""
     from ethproof_tpu_torch.runtime.prover_state import CircuitConfig
     from test_transfer_e2e import make_transfer_witness
 
@@ -220,14 +224,54 @@ def test_tx_proof_dispatches_as_the_reference(monkeypatch):
                           None, device="cpu")
     assert isinstance(dummy, tops.DummyProof) and not tops.verify_dummy(dummy)
 
+    # with a recursion state: a transfer's binding is the state's shape, a
+    # contract call runs at the state's sizes with no binding, and each
+    # multi-proof is replaced by its root proof at the state's variant
+    class Root:
+        def prove(self, multi, seam, config, device, times):
+            roots.append((multi, seam))
+            return types.SimpleNamespace(variant=None)
+
+    class State:
+        root_log_n, sizes, binding_shape = 16, tall.TableSizes(cpu=5), "shape"
+
+        def root(self, overlap):
+            return Root()
+
+        def evm_root(self, shape):
+            return Root()
+
+        def variant_of(self, overlap):
+            return ("transfer", overlap)
+
+        def variant_of_evm(self, shape):
+            return ("evm", shape)
+
+    roots = []
+    monkeypatch.setattr(tops, "prove_transfer",
+                        lambda gi, config, sizes, binding, **kw: calls.append(
+                            ("transfer", binding, sizes)) or types.SimpleNamespace(
+                                overlap="distinct", multi="transfer multi"))
+    monkeypatch.setattr(tops, "prove_contract_call",
+                        lambda gi, config, sizes, binding, **kw: calls.append(
+                            ("contract", binding, sizes)) or types.SimpleNamespace(
+                                shape="evm shape", multi="evm multi"))
+    state = State()
+    leaf = tops.tx_proof(t_transfer, None, CircuitConfig(), recursion=state, device="cpu")
+    assert calls[-1][:2] == ("transfer", "shape")
+    assert leaf.multi is None and leaf.root_proof.variant == ("transfer", "distinct")
+    leaf = tops.tx_proof(t_call, None, CircuitConfig(), recursion=state, device="cpu")
+    assert calls[-1] == ("contract", None, state.sizes)
+    assert leaf.multi is None and leaf.root_proof.variant == ("evm", "evm shape")
+    assert [m for m, _ in roots] == ["transfer multi", "evm multi"]
+    assert [seam for _, seam in roots] == [troot.tx_seam(t_transfer), troot.tx_seam(t_call)]
+
     def fails(*args, **kw):
         raise AssertionError("witness binding failed")
 
     monkeypatch.setattr(tops, "prove_contract_call", fails)
     with pytest.raises(tops.FatalError):
         tops.tx_proof(t_call, None, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tops.tx_proof(t_call, None, recursion=object(), device="cpu")
 
 
 def _dummies(pkg_types, gi_cls):
@@ -248,14 +292,15 @@ def _dummies(pkg_types, gi_cls):
 @pytest.mark.parametrize("pkg", ["j", "t"])
 def test_aggregation_chains_and_refuses_a_broken_seam(pkg):
     ops, gi_cls = (jops, JGenerationInputs) if pkg == "j" else (tops, None)
+    device = {} if pkg == "j" else {"device": "cpu"}
     a, b, broken = _dummies(ops, gi_cls)
     agg = ops.agg_combine(a, b)
     (tb, _, gb, _, rb, _), (_, ta, _, ga, _, ra) = ops.public_data(a), ops.public_data(b)
     assert ops.public_data(agg) == (tb, ta, gb, ga, rb, ra)
     block = ops.block_proof(agg)
-    assert ops.verify_block(block, None)
+    assert ops.verify_block(block, None, **device)
     child = ops.block_proof(ops.agg_combine(b, a), block)
-    assert ops.verify_block(child, None)
+    assert ops.verify_block(child, None, **device)
     with pytest.raises(ops.FatalError):
         ops.agg_combine(a, broken)
     bad_parent = dataclasses.replace(block, state_root_after=b"\x01" * 32)

@@ -84,6 +84,12 @@ MODULES = [
     "ethproof_tpu_torch.recursion.block",
     "ethproof_tpu_torch.recursion.state",
     "ethproof_tpu_torch.evm.withdrawal",
+    "ethproof_tpu_torch.witness.padding",
+    "ethproof_tpu_torch.witness.gather",
+    "ethproof_tpu_torch.runtime.serde",
+    "ethproof_tpu_torch.runtime.scheduler",
+    "ethproof_tpu_torch.runtime.distributed",
+    "ethproof_tpu_torch.cli",
 ]
 
 
@@ -227,6 +233,27 @@ def test_recursion_entry_points_refuse_the_cpu_by_default():
     bp = ops.block_proof(ops.agg_combine(ops.DummyProof(gi), ops.DummyProof(gi)))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ops.verify_block(bp, StarkConfig(), recursion=state)
+    assert ops.verify_block(bp, StarkConfig(), device="cpu")
+
+
+def test_block_pipeline_refuses_the_cpu_by_default():
+    """prove_block, verify_block and a worker take device=None as the card."""
+    _cuda_absent()
+    from ethproof_tpu_torch.fri.config import StarkConfig
+    from ethproof_tpu_torch.runtime import ops, scheduler
+    from ethproof_tpu_torch.runtime.distributed import worker_main_loop
+    from ethproof_tpu_torch.witness import synthetic
+
+    gi = synthetic.noop_dummy(1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        scheduler.prove_block([gi, gi], StarkConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        scheduler.Runtime().run_tasks([("echo", {"value": 1})])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        worker_main_loop(("127.0.0.1", 1), reconnect=0)
+    bp = scheduler.prove_block([gi, gi], StarkConfig(), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ops.verify_block(bp, StarkConfig())
     assert ops.verify_block(bp, StarkConfig(), device="cpu")
 
 
