@@ -24,6 +24,14 @@ and the script exits non-zero; no phase's failure is caught):
              proved again under bf16 on a fresh MemoryStark (counts reset
              again), which must give the same digest and launch only
              base_dft_bf16;
+   mesh    — multi-device proving on a virtual mesh of the one card (every
+             shard on cuda:0): the same 2^17-row trace proved under i8 on
+             `make_mesh(devices=["cuda:0"] * 4)` (columns sharded through
+             the NTTs, domain blocks through the Merkle trees, the sweep and
+             the DEEP codeword; counts reset just before, read just after)
+             must give the i8 proof's digest; seconds, peak and launches are
+             printed; then `trace_commit_sharded` of a seeded (2, 28, 2^14)
+             batch on a (tx 2, col 2) mesh against the one-device caps;
    wrap    — the recursion core: `build_wrap(MemoryStark(), 17,
              standard_fast_config(), device="cuda")` compiles the verifier
              of that 2^17-row proof into a verifier-machine circuit, and
@@ -36,8 +44,11 @@ and the script exits non-zero; no phase's failure is caught):
 5. small transfer — the seven-table transfer proof (`SIZES7` of
              tests/test_transfer_e2e.py: the Keccak pair on, the binding
              dropped by the cpu < 2^11 pre-guard) at the CPU tier's sizes,
-             made on the card under each NTT encoding, must equal the CPU
-             plain path's proof field for field, table by table;
+             made on the card under i8, must equal the CPU plain path's
+             proof field for field, table by table (its bf16 re-proof made
+             room for the mesh phase: the bf16 kernel is driven at full
+             width by the Memory proof's bf16 run and held bit for bit at
+             every census shape);
    succinct — the recursion ladder at the JAX package's succinct fixture
              (tests/test_succinct_block.py:42-53: one query, the CPU tier's
              five-table sizes): `transfer_chain(2)` and the no-op dummy at
@@ -58,7 +69,11 @@ and the script exits non-zero; no phase's failure is caught):
              committed again) from the decoded proof's declared identity,
              accepts the decoded block and rejects a changed leaf statement,
              a flipped opening of the top proof and a changed top statement;
-6. cli     — the transfer path as a user runs it: an EIP-1559 transfer over
+6. cli     — the transfer path as a user runs it, through the default mesh
+             (set to a 2-wide mesh over cuda:0 for this phase, as
+             `default_mesh()` gives a multi-card host, and reset after it:
+             `prove_multi(mesh=None)` shards every commit; the number of
+             sharded commits is printed): an EIP-1559 transfer over
              a seeded 1,000-account state trie, padded with a no-op dummy in
              front as `rpc` pads a one-transaction block, written as
              witness.json; `ethproof_tpu_torch.cli.main(["prove", "-i",
@@ -79,7 +94,7 @@ and the script exits non-zero; no phase's failure is caught):
              copy whose top aggregate claims another post state root; a
              flipped post state root of the decoded proof is rejected by
              `verify_all_tables` alone;
-7. contract — the contract-call path: `seeded_erc20_transfer(1000, 1000,
+7. contract — on one device, the contract-call path: `seeded_erc20_transfer(1000, 1000,
              5)` (an EIP-1559 ERC-20 `transfer` over a 1,000-account state
              trie and a 1,000-holder token storage trie) through
              `runtime.ops.tx_proof(gi, config, CircuitConfig())` (binding
@@ -111,8 +126,9 @@ one 2^17-row Memory proof (device kernels by name, idle share, layer
 times); `python3 chip_smoke.py --memory` proves the 2^17-row Memory table
 under each sweep (IR and direct), runs the cli phase and proves the
 contract path once, and prints each phase's seconds and peak device memory;
-`python3 chip_smoke.py --succinct` and `--cli` build the kernels and run
-that phase alone; `python3 chip_smoke.py --root-size` compiles the full-width
+`python3 chip_smoke.py --succinct`, `--cli` and `--mesh` build the kernels
+and run that phase alone (`--mesh` proves the 2^17-row Memory trace on one
+device first, for the digest); `python3 chip_smoke.py --root-size` compiles the full-width
 transfer root (the seven-table transfer path's verifier, at
 `standard_fast_config`) and prints its size. None prints a result line.
 
@@ -139,6 +155,8 @@ INT8_OPS_PER_S = 1979e12
 BF16_OPS_PER_S = 989e12
 
 LOG_ROWS = 17  # MemoryStark floor: DEFAULT_RANGES["memory"] starts at 2^17
+MESH_WIDTH = 4  # the mesh phase's virtual mesh on the one card
+CLI_MESH_WIDTH = 2  # the default mesh of the cli phase
 TRACE_COLS = 28
 ARITH_COLS = 430  # the arithmetic table: the largest trace of the transfer
 CENSUS_PLAIN_MAX = 1 << 27  # elements up to which the census times the plain versions
@@ -564,7 +582,8 @@ def phase_slice(card: str):
     proved again under bf16 on a fresh MemoryStark (no commitment reused),
     launch counts reset just before, which must give the same digest and
     launch only base_dft_bf16 -> (the bf16 proof's base_dft_bf16 launches,
-    the i8 proof's stark and proof, for the wrap)."""
+    the i8 proof's stark and proof, for the wrap, the trace and the i8
+    proof's digest, for the mesh phase)."""
     import torch
 
     from ethproof_tpu_torch.fri.config import standard_fast_config
@@ -622,7 +641,87 @@ def phase_slice(card: str):
                              f"the i8 proof's ({digest})")
     if launches16["base_dft_bf16"] <= 0 or launches16["base_dft"] != 0:
         raise AssertionError(f"the Memory proof under bf16 launched {launches16}")
-    return launches16["base_dft_bf16"], stark, proof
+    return launches16["base_dft_bf16"], stark, proof, trace, digest
+
+
+def phase_mesh(card: str, trace, digest: str) -> int:
+    """Multi-device proving on a virtual mesh of the one card (every shard
+    on cuda:0, so peer-to-peer copies between cards are not exercised):
+    `trace` (the 2^17-row Memory trace) proved under i8 on a MESH_WIDTH-wide
+    mesh, launch counts reset just before, read just after, must have the
+    one-device i8 proof's `digest`; then `trace_commit_sharded` of a seeded
+    (2, 28, 2^14) batch on a (tx 2, col 2) mesh must give the one-device
+    caps -> the mesh proof's base_dft launches."""
+    import torch
+
+    from ethproof_tpu_torch.fri.config import standard_fast_config
+    from ethproof_tpu_torch.gf import field as gfp
+    from ethproof_tpu_torch.hash import merkle
+    from ethproof_tpu_torch.interop import proof_to_numpy
+    from ethproof_tpu_torch.parallel import mesh as pmesh
+    from ethproof_tpu_torch.poly import base_dft as bd
+    from ethproof_tpu_torch.poly import four_step
+    from ethproof_tpu_torch.stark.prove import stark_prove
+    from ethproof_tpu_torch.tables import memory as mem
+
+    config = standard_fast_config()
+    mesh = pmesh.make_mesh(devices=["cuda:0"] * MESH_WIDTH)
+    bd.ENCODING = "i8"
+    times: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    proof = stark_prove(mem.MemoryStark(), trace, [], config, device="cuda", mesh=mesh,
+                        phase_times=times)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, shapes = dict(bd.LAUNCHES), len(bd.CENSUS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    got = proof_digest([proof_to_numpy(proof)])
+    print(f"[mesh] prove 2^{LOG_ROWS} rows on a {MESH_WIDTH}-wide mesh of {card}: {wall:.3f} s, "
+          f"launches {launches} over {shapes} shapes, peak device memory {peak_gb:.2f} GB, "
+          f"proof sha256 {got}")
+    print_phases("[mesh] phase seconds:", {"memory": times})
+    if got != digest:
+        raise AssertionError(f"the mesh proof's digest {got} is not the one-device proof's "
+                             f"({digest})")
+    if launches["base_dft"] <= 0 or launches["base_dft_bf16"] != 0:
+        raise AssertionError(f"the mesh proof under i8 launched {launches}")
+    fri = config.fri_config
+    tx, n = 2, 1 << 14
+    batch = np.random.default_rng(9).integers(0, P, size=(tx, TRACE_COLS, n), dtype=np.uint64)
+    txmesh = pmesh.make_mesh(devices=["cuda:0"] * 4, tx=tx)
+    commit, shard_fn = pmesh.trace_commit_sharded(txmesh, TRACE_COLS, n, fri.rate_bits,
+                                                  fri.cap_height, fri.coset_shift)
+    t0 = time.perf_counter()
+    caps = gfp.to_u64(commit(shard_fn(batch)))
+    sharded_s = time.perf_counter() - t0
+    for t in range(tx):
+        coeffs = four_step.best_intt(gfp.from_u64(batch[t], "cuda"))
+        lde = four_step.best_coset_lde(coeffs, fri.rate_bits, fri.coset_shift)
+        if not np.array_equal(caps[t], gfp.to_u64(merkle.build(lde, fri.cap_height).cap)):
+            raise AssertionError(f"trace_commit_sharded's cap of tx {t} differs from one device's")
+    print(f"[mesh] trace_commit_sharded of ({tx}, {TRACE_COLS}, 2^14) on a (tx {tx}, col 2) "
+          f"mesh: {sharded_s:.3f} s, caps equal to one device's")
+    return launches["base_dft"]
+
+
+def phase_mesh_alone(card: str) -> None:
+    """The 2^17-row Memory trace proved on one device under i8 (its digest),
+    then the mesh phase."""
+    from ethproof_tpu_torch.fri.config import standard_fast_config
+    from ethproof_tpu_torch.interop import proof_to_numpy
+    from ethproof_tpu_torch.stark.prove import stark_prove
+    from ethproof_tpu_torch.tables import memory as mem
+
+    n = 1 << LOG_ROWS
+    trace = mem.generate_trace(memory_ops(n - 1000, seed=4), n)
+    t0 = time.perf_counter()
+    proof = stark_prove(mem.MemoryStark(), trace, [], standard_fast_config(), device="cuda")
+    digest = proof_digest([proof_to_numpy(proof)])
+    print(f"[mesh] one-device i8 proof: {time.perf_counter() - t0:.3f} s, sha256 {digest}")
+    phase_mesh(card, trace, digest)
 
 
 def phase_wrap(card: str, child_stark, child_proof) -> dict:
@@ -747,8 +846,8 @@ def cpu_small_transfers():
 
 def phase_small_transfer(on_cpu_future) -> None:
     """The card's seven-table transfer proof at the CPU tier's sizes, under
-    each encoding, equals the CPU plain path's (from `cpu_small_transfers`),
-    table by table. (The five-table transfer is held against the CPU by
+    i8, equals the CPU plain path's (from `cpu_small_transfers`), table by
+    table. (The five-table transfer is held against the CPU by
     `phase_succinct`, whose ladder proves two.)"""
     from ethproof_tpu_torch.evm.transfer import prove_transfer
     from ethproof_tpu_torch.interop import multi_proof_to_numpy
@@ -756,25 +855,18 @@ def phase_small_transfer(on_cpu_future) -> None:
     from ethproof_tpu_torch.witness import synthetic
 
     gi, config = synthetic.small_transfer(), small_transfer_config()
-    sizes = small_transfer_sizes(5)
-    on_cpu = cpu_s = None
-    for encoding in ("i8", "bf16"):
-        bd.ENCODING = encoding
-        t0 = time.perf_counter()
-        try:
-            on_card = multi_proof_to_numpy(
-                prove_transfer(gi, config, sizes, device="cuda").multi)
-        finally:
-            bd.ENCODING = "i8"
-        card_s = time.perf_counter() - t0
-        if on_cpu is None:
-            on_cpu, cpu_s = on_cpu_future.result()
-        for t, (x, y) in enumerate(zip(on_card, on_cpu)):
-            if not same(x, y):
-                raise AssertionError(f"small transfer, {encoding}: table {t}'s proof on "
-                                     "the card differs from the CPU's")
-        print(f"[small transfer] {len(on_card)} tables, {encoding}: card ({card_s:.2f} s) "
-              f"and CPU plain path agree field for field in every table")
+    bd.ENCODING = "i8"
+    t0 = time.perf_counter()
+    on_card = multi_proof_to_numpy(
+        prove_transfer(gi, config, small_transfer_sizes(5), device="cuda").multi)
+    card_s = time.perf_counter() - t0
+    on_cpu, cpu_s = on_cpu_future.result()
+    for t, (x, y) in enumerate(zip(on_card, on_cpu)):
+        if not same(x, y):
+            raise AssertionError(f"small transfer, i8: table {t}'s proof on the card differs "
+                                 "from the CPU's")
+    print(f"[small transfer] {len(on_card)} tables, i8: card ({card_s:.2f} s) and CPU plain "
+          f"path agree field for field in every table")
     print(f"[small transfer] the CPU plain path's proof took {cpu_s:.2f} s in a worker "
           "process, beside the card's phases")
 
@@ -1201,7 +1293,10 @@ def phase_cli(card: str):
     this process, stdout into proof.json: `prove_block` with the
     CircuitConfig() ranges through the in-memory Runtime, made without
     retries, one `tx_proof` task per payload, `prove_transfer(binding=
-    "auto")`, `agg_combine`, `block_proof`, serde), i8, launch counts reset
+    "auto")`, `agg_combine`, `block_proof`, serde), through the default mesh
+    (a CLI_MESH_WIDTH-wide mesh over cuda:0, as `default_mesh()` gives a
+    multi-card host; reset after the prove: the sharded commits are counted
+    and must be some), i8, launch counts reset
     just before, read just after; each task's seconds, the transfer's host
     steps and each table's phases are printed. The decoded
     transfer proof has seven tables at TRANSFER7_LOGS, the production
@@ -1219,6 +1314,7 @@ def phase_cli(card: str):
     from ethproof_tpu_torch.evm import transfer as tr
     from ethproof_tpu_torch.evm.binding import PRODUCTION_SHAPE
     from ethproof_tpu_torch.interop import multi_proof_to_numpy
+    from ethproof_tpu_torch.parallel import mesh as pmesh
     from ethproof_tpu_torch.poly import base_dft as bd
     from ethproof_tpu_torch.runtime import ops, serde
     from ethproof_tpu_torch.tables.all import verify_all_tables
@@ -1239,12 +1335,29 @@ def phase_cli(card: str):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    leaves = []
+    leaves, commits = [], []
+    commit_blocks = pmesh.commit_blocks
+
+    def counted(col_blocks, *args, **kwargs):
+        commits.append(len(col_blocks))
+        return commit_blocks(col_blocks, *args, **kwargs)
+
+    pmesh._DEFAULT_MESH = pmesh.make_mesh(devices=["cuda:0"] * CLI_MESH_WIDTH)
+    pmesh.commit_blocks = counted
     t0 = time.perf_counter()
-    with no_retries(), timed_calls(ops, "tx_proof", leaves):
-        rc = run_cli(["prove", "-i", witness, "--persistence", "none"], proof_path)
-    torch.cuda.synchronize()
+    try:
+        with no_retries(), timed_calls(ops, "tx_proof", leaves):
+            rc = run_cli(["prove", "-i", witness, "--persistence", "none"], proof_path)
+        torch.cuda.synchronize()
+    finally:
+        pmesh.commit_blocks = commit_blocks
+        pmesh.reset_default_mesh()
     prove_s = time.perf_counter() - t0
+    sharded = sum(w == CLI_MESH_WIDTH for w in commits)
+    print(f"[cli] {sharded} of {len(commits)} commits of cli prove went through the default "
+          f"{CLI_MESH_WIDTH}-wide mesh")
+    if sharded == 0:
+        raise AssertionError(f"cli prove made {len(commits)} commits, none on the mesh")
     launches, census = dict(bd.LAUNCHES), dict(bd.CENSUS)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if rc != 0:
@@ -1620,14 +1733,14 @@ def main() -> int:
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     modes = {"--profile": phase_profile, "--memory": phase_memory,
              "--succinct": phase_succinct_alone, "--root-size": phase_root_size,
-             "--cli": phase_cli}
+             "--cli": phase_cli, "--mesh": phase_mesh_alone}
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         phase_build()
         modes[sys.argv[1]](card)
         return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]} (--profile, --memory, --succinct, "
-              "--root-size or --cli)", file=sys.stderr)
+              "--root-size, --cli or --mesh)", file=sys.stderr)
         return 2
     # the plain versions' digit matmuls run in float64, exact whatever the
     # float32 setting: every comparison below runs with TF32 allowed
@@ -1653,9 +1766,11 @@ def main() -> int:
         run("adversarial", phase_adversarial, card)
         run("four_step", phase_four_step)
         run("small_proof", phase_small_proof, cpu_proofs)
-        bf16_launches, memory_stark, memory_proof = run("memory_2^17", phase_slice, card)
+        bf16_launches, memory_stark, memory_proof, memory_trace, memory_digest = run(
+            "memory_2^17", phase_slice, card)
+        run("mesh", phase_mesh, card, memory_trace, memory_digest)
         wrap_census = run("wrap", phase_wrap, card, memory_stark, memory_proof)
-        del memory_stark, memory_proof
+        del memory_stark, memory_proof, memory_trace
         run("small_transfer", phase_small_transfer, on_cpu)
         succinct_census = run("succinct", phase_succinct, card, on_cpu_succinct)
     _, transfer_census = run("cli", phase_cli, card)

@@ -270,8 +270,13 @@ def _launch(a: torch.Tensor, log_n: int, inverse: bool, encoding: str) -> torch.
     wfrag, row = _device_tables(encoding, log_n, inverse, a.device)
     out = torch.empty_like(a)
     rows = a.numel() >> log_n
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = fn(a.data_ptr(), wfrag.data_ptr(), row.data_ptr(), out.data_ptr(), rows, log_n, stream)
+    # the C entry point sets the kernel's shared-memory attribute and
+    # launches on the CURRENT device: make it the tensor's (a mesh shard
+    # may lie on another card than the current one)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(a.data_ptr(), wfrag.data_ptr(), row.data_ptr(), out.data_ptr(), rows, log_n,
+                 stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     LAUNCHES[name] += 1

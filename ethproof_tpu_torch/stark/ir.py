@@ -683,3 +683,15 @@ class SweepExecutor:
                 for i in range(nchunks)]
         self.last_run = (nchunks, nchunks * self.stacked_ops())
         return outs[0] if nchunks == 1 else torch.cat(outs, dim=-1)
+
+    def run_blocks(self, heads, scals, tails) -> List[torch.Tensor]:
+        """`run` over a domain held in blocks (a mesh's domain blocks, one
+        without a mesh): heads[d], scals[d] and tails[d] as in `run`, on
+        block d's device -> each block's outputs there. `last_run` counts
+        the chunks and stacked ops of all blocks."""
+        outs, chunks = [], 0
+        for head, scal, tail in zip(heads, scals, tails):
+            outs.append(self.run(head, scal, tail))
+            chunks += self.last_run[0]
+        self.last_run = (chunks, chunks * self.stacked_ops())
+        return outs

@@ -2,9 +2,8 @@
 
 Counterpart: ethproof_tpu/stark/multi.py:1 (`CrossTableLookup`,
 `MultiProof`, `_instances_for_table`, `_pre_phase`, `prove_multi`,
-`verify_multi`). The protocol is the same; what differs: no `mesh`
-argument (one device), and `device` / `phase_times` are passed through to
-the per-table commit and `stark_prove`.
+`verify_multi`). The protocol is the same; `device`, `phase_times` and
+`mesh` are passed through to the per-table commit and `stark_prove`.
 
 Protocol:
   pre-phase: observe (num_tables, each table's public inputs, degree bits,
@@ -29,6 +28,7 @@ from .. import resolve_device
 from ..fri.challenger import Challenger
 from ..fri.config import StarkConfig
 from ..gf import field_host as fh
+from ..parallel import mesh as pmesh
 from ..runtime.tracing import phase
 from .prove import StarkProof, commit_trace, stark_prove
 from .stark import CtlInstance, CtlSpec, Stark
@@ -98,19 +98,25 @@ def prove_multi(
     config: StarkConfig,
     device=None,
     phase_times: Optional[List[Dict[str, float]]] = None,
+    mesh=None,
 ) -> MultiProof:
     """Prove every table under one transcript on `device` (None: the CUDA
-    card). `phase_times`, when given, receives one dict per table: the
+    card). `mesh` as in `stark_prove`: None takes the default mesh (a
+    multi-card host shards every commit with no flag), False forces one
+    device. `phase_times`, when given, receives one dict per table: the
     seconds of its trace commit (`commit`) and of `stark_prove`'s phases."""
     assert len(starks) == len(traces) == len(public_inputs)
     dev = resolve_device(device)
+    mesh = pmesh.resolve_mesh(mesh, dev)
+    if mesh is not None:
+        dev = mesh.leader
     times: List[Dict[str, float]] = [{} for _ in starks]
     challenger = Challenger()
     # one commit per table, reused by stark_prove (no duplicate LDE/tree)
     commitments = []
     for tr, tt in zip(traces, times):
         with phase("commit", tt, dev):
-            commitments.append(commit_trace(tr, config, dev))
+            commitments.append(commit_trace(tr, config, dev, mesh))
     caps = [cm.cap for cm in commitments]
     degree_bits = [tr.shape[1].bit_length() - 1 for tr in traces]
     _pre_phase(challenger, public_inputs, degree_bits, caps)
@@ -129,6 +135,7 @@ def prove_multi(
                 commitment=commitments[t],
                 device=dev,
                 phase_times=times[t],
+                mesh=mesh if mesh is not None else False,
             )
         )
         commitments[t] = None  # the table's LDE and tree are no longer needed

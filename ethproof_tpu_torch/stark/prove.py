@@ -6,8 +6,14 @@ Counterpart: ethproof_tpu/stark/prove.py:62-659 and :846-1052
 `_lookup_aux_columns`, `stark_prove`, `_compute_quotient`,
 `_compute_openings`, `_deep_composition`).
 
-Every array that spans the trace or LDE domain is an int64 tensor on one
-device; the transcript runs on the host. What differs from the counterpart:
+Arrays that span the trace or LDE domain are int64 tensors on one device
+or, with a mesh (`parallel/mesh.py`, `mesh=` of `stark_prove`), blocks on
+the mesh's devices: a commitment keeps its coefficients in column blocks
+and its LDE in domain blocks (one block of each without a mesh); the
+sweep, the DEEP codeword and the query openings run per domain block, the
+openings at zeta per column block, and only the quotient's accumulator
+rows, the (cols, 2) openings and the DEEP column meet on the leader. The
+transcript runs on the host. What differs from the counterpart:
 - the constraint sweep (`ETHPROOF_SWEEP`, counterpart :662-733) replays
   the recorded IR program on the level executor of `stark/ir.py` ("ir",
   the default), or evaluates `stark.eval` directly on the torch
@@ -17,7 +23,9 @@ device; the transcript runs on the host. What differs from the counterpart:
 - `lax.associative_scan` becomes a log-depth (Hillis-Steele) scan under
   field mul or add;
 - `fixed_cap` has the counterpart's disk cache under the artifact
-  directory, and no mesh.
+  directory, and commits on one device;
+- the quotient's openings use the coefficients its commit starts from
+  (the counterpart transforms its LDE back: the same values).
 
 Tables with custom aux columns (the verifier machine's wire bus,
 recursion/machine.py) draw their aux challenges after the trace cap (and
@@ -51,6 +59,7 @@ from ..gf import field as gfp
 from ..gf import field_host as fh
 from ..gf.extension import GF2
 from ..hash import merkle
+from ..parallel import mesh as pmesh
 from ..poly import four_step
 from ..poly import ntt as nttm
 from ..runtime.prover_state import artifact_dir
@@ -72,40 +81,53 @@ P = fh.P
 
 @dataclass
 class TraceCommitment:
-    """One commit (iNTT -> coset LDE -> Merkle tree) of a (cols, n) matrix."""
+    """One commit (iNTT -> coset LDE -> Merkle tree) of a (cols, n) matrix,
+    on one device (one block of each) or a mesh."""
 
-    trace_gf: torch.Tensor  # (cols, n) values
-    coeffs: torch.Tensor  # (cols, n) coefficient form
-    lde: torch.Tensor  # (cols, n << rate_bits) coset LDE
+    trace_gf: torch.Tensor  # (cols, n) values, on the leader
+    coeffs: List[torch.Tensor]  # column blocks of the (cols, n) coefficient form
+    lde: List[torch.Tensor]  # domain blocks of the (cols, n << rate_bits) coset LDE
     tree: merkle.MerkleTree
     cap: np.ndarray  # (4, 2^cap_height) u64
 
 
-def _commit_gf(a: torch.Tensor, config: StarkConfig):
-    """(coeffs, lde, tree) for a (cols, n) field tensor."""
-    fri_cfg = config.fri_config
-    coeffs = four_step.best_intt(a)
-    lde = four_step.best_coset_lde(coeffs, fri_cfg.rate_bits, fri_cfg.coset_shift)
-    return coeffs, lde, merkle.build(lde, fri_cfg.cap_height)
+def _commit_gf(a: torch.Tensor, config: StarkConfig, mesh: Optional[pmesh.Mesh] = None,
+               from_coeffs: bool = False):
+    """(coefficient blocks, LDE blocks, tree) for a (cols, n) field tensor
+    of values (of coefficients with `from_coeffs`). With `mesh` the
+    columns are zero-padded to its width and sharded over it: each device
+    transforms its own columns, then the LDE is resharded to the domain
+    axis for the Merkle tree (`pmesh.commit_blocks`)."""
+    fri = config.fri_config
+    blocks = [a] if mesh is None else pmesh.shard(pmesh.pad_cols(a, pmesh.mesh_width(mesh)),
+                                                  mesh, 0)
+    return pmesh.commit_blocks(blocks, a.shape[0], fri.rate_bits, fri.coset_shift,
+                               fri.cap_height, from_coeffs)
 
 
-def commit_trace(trace: np.ndarray, config: StarkConfig, device=None) -> TraceCommitment:
-    """Commit a (cols, n) u64 trace on `device` (None: the CUDA card)."""
-    trace_gf = gfp.from_u64(trace, resolve_device(device))
-    coeffs, lde, tree = _commit_gf(trace_gf, config)
+def commit_trace(trace: np.ndarray, config: StarkConfig, device=None,
+                 mesh: Optional[pmesh.Mesh] = None) -> TraceCommitment:
+    """Commit a (cols, n) u64 trace on `device` (None: the CUDA card), or
+    sharded over `mesh` (then `device` is its leader)."""
+    dev = mesh.leader if mesh is not None else resolve_device(device)
+    trace_gf = gfp.from_u64(trace, dev)
+    coeffs, lde, tree = _commit_gf(trace_gf, config, mesh)
     return TraceCommitment(trace_gf, coeffs, lde, tree, gfp.to_u64(tree.cap))
 
 
-def fixed_commitment(stark: Stark, n: int, config: StarkConfig, device=None) -> TraceCommitment:
+def fixed_commitment(stark: Stark, n: int, config: StarkConfig, device=None,
+                     mesh: Optional[pmesh.Mesh] = None) -> TraceCommitment:
     """Commitment to the preprocessed (fixed) columns — the table's
-    verification key. Cached on the stark instance (latest size only)."""
+    verification key. Cached on the stark instance (latest size only),
+    keyed by the mesh too."""
     dev = resolve_device(device)
     cache = stark.__dict__.setdefault("_torch_fixed_cm_cache", {})
     fri = config.fri_config
-    key = (n, fri.rate_bits, fri.cap_height, fri.coset_shift, str(dev))
+    key = (n, fri.rate_bits, fri.cap_height, fri.coset_shift, str(dev),
+           mesh.key() if mesh is not None else None)
     if key not in cache:
         cache.clear()  # hold at most one size: the LDE is the big object
-        cache[key] = commit_trace(stark.fixed_columns(n), config, dev)
+        cache[key] = commit_trace(stark.fixed_columns(n), config, dev, mesh)
     return cache[key]
 
 
@@ -238,24 +260,40 @@ def eval_at_ext_point(coeffs: torch.Tensor, pws: GF2) -> np.ndarray:
 
 
 def _compute_openings(trace_c, fixed_c, aux_c, quot_c, zeta, gzeta) -> StarkOpenings:
-    n = trace_c.shape[-1]
-    dev = trace_c.device
-    pz = ext_powers(zeta, n, dev)
-    pg = ext_powers(gzeta, n, dev)
+    """Each argument a list of column blocks (the first on the leader):
+    the per-column sums run where each block lies, and only their (cols, 2)
+    results are joined."""
+    n = trace_c[0].shape[-1]
+    dev = trace_c[0].device
+    base = {zeta: ext_powers(zeta, n, dev), gzeta: ext_powers(gzeta, n, dev)}
+    moved: Dict = {}
+
+    def at(blocks, point):
+        out = []
+        for b in blocks:
+            key = (point, str(b.device))
+            if key not in moved:
+                moved[key] = GF2(base[point].a.to(b.device), base[point].b.to(b.device))
+            out.append(eval_at_ext_point(b, moved[key]))
+        return np.concatenate(out) if out else _empty_ext()
+
     return StarkOpenings(
-        trace_at_zeta=eval_at_ext_point(trace_c, pz),
-        trace_at_gzeta=eval_at_ext_point(trace_c, pg),
-        fixed_at_zeta=eval_at_ext_point(fixed_c, pz),
-        fixed_at_gzeta=eval_at_ext_point(fixed_c, pg),
-        aux_at_zeta=eval_at_ext_point(aux_c, pz),
-        aux_at_gzeta=eval_at_ext_point(aux_c, pg),
-        quotient_at_zeta=eval_at_ext_point(quot_c, pz),
+        trace_at_zeta=at(trace_c, zeta),
+        trace_at_gzeta=at(trace_c, gzeta),
+        fixed_at_zeta=at(fixed_c, zeta),
+        fixed_at_gzeta=at(fixed_c, gzeta),
+        aux_at_zeta=at(aux_c, zeta),
+        aux_at_gzeta=at(aux_c, gzeta),
+        quotient_at_zeta=at(quot_c, zeta),
     )
 
 
-def _domain_points(log_m: int, shift: int, device) -> torch.Tensor:
+def _domain_points(log_m: int, shift: int, device, lo: int = 0,
+                   count: Optional[int] = None) -> torch.Tensor:
+    """shift * w^i for i in [lo, lo + count) (default: the whole domain)."""
     w = fh.primitive_root_of_unity(log_m)
-    return gfp.mul_const(nttm.powers(w, 1 << log_m, device), shift)
+    count = 1 << log_m if count is None else count
+    return gfp.mul_const(nttm.powers(w, count, device), shift * fh.exp(w, lo) % P)
 
 
 def _zh_short(log_n: int, rate_bits: int, shift: int, device) -> torch.Tensor:
@@ -271,8 +309,10 @@ def _roll_cols(a: torch.Tensor, k: int) -> torch.Tensor:
     return torch.roll(a, -k, dims=-1)
 
 
-def _open_tree(tree: merkle.MerkleTree, rows: torch.Tensor, idx: torch.Tensor) -> TreeOpenings:
-    vals = gfp.to_u64(rows[:, idx])  # (rows, q)
+def _open_tree(tree: merkle.MerkleTree, rows: List[torch.Tensor],
+               idx: torch.Tensor) -> TreeOpenings:
+    """Leaf rows and paths at `idx`, read from the domain blocks that hold them."""
+    vals = gfp.to_u64(merkle.take(rows, idx, idx.device))  # (rows, q)
     paths = np.transpose(gfp.to_u64(merkle.open_path(tree, idx)), (2, 0, 1))
     return TreeOpenings(values=np.ascontiguousarray(vals.T), paths=np.ascontiguousarray(paths))
 
@@ -352,13 +392,22 @@ def stark_prove(
     commitment: Optional[TraceCommitment] = None,
     device=None,
     phase_times: Optional[Dict[str, float]] = None,
+    mesh=None,
 ) -> StarkProof:
     """Prove `trace` satisfies `stark` on `device` (None: the CUDA card).
 
-    `phase_times`, when given, receives the seconds of the commit, aux,
-    quotient, openings and deep_fri phases, and under the IR sweep the
-    level executor's plan as "ir_plan" (`SweepExecutor.plan`)."""
+    `mesh`: None takes `parallel.mesh.default_mesh()` (a CUDA proof on a
+    multi-card host, led by `device`), False forces one device, a `Mesh`
+    (led by `device`) shards every commit, the sweep and the DEEP codeword
+    over it; the proof is the same bits on every mesh. A `commitment`
+    passed in must come from the same mesh. `phase_times`, when given,
+    receives the seconds of the commit, aux, quotient, openings and
+    deep_fri phases, and under the IR sweep the level executor's plan as
+    "ir_plan" (`SweepExecutor.plan`)."""
     dev = resolve_device(device)
+    mesh = pmesh.resolve_mesh(mesh, dev)
+    if mesh is not None:
+        dev = mesh.leader
     fri_cfg = config.fri_config
     cols, n = trace.shape
     assert cols == stark.num_columns
@@ -379,10 +428,10 @@ def stark_prove(
     with phase("commit", phase_times, dev):
         fixed_cm: Optional[TraceCommitment] = None
         if stark.num_fixed_columns:
-            fixed_cm = fixed_commitment(stark, n, config, dev)
+            fixed_cm = fixed_commitment(stark, n, config, dev, mesh)
             challenger.observe_cap(fixed_cm.cap)
         if commitment is None:
-            commitment = commit_trace(trace, config, dev)
+            commitment = commit_trace(trace, config, dev, mesh)
     trace_lde = commitment.lde
     challenger.observe_cap(commitment.cap)
 
@@ -409,7 +458,7 @@ def stark_prove(
             aux_parts.append(
                 stark.custom_aux_columns(commitment.trace_gf, fixed_gf, aux_challenges))
         if aux_parts:
-            aux_coeffs, aux_lde, aux_tree = _commit_gf(torch.cat(aux_parts), config)
+            aux_coeffs, aux_lde, aux_tree = _commit_gf(torch.cat(aux_parts), config, mesh)
             aux_cap = gfp.to_u64(aux_tree.cap)
             challenger.observe_cap(aux_cap)
             if instances:
@@ -418,11 +467,11 @@ def stark_prove(
     # 3. constraint sweep -> quotient
     alphas = [challenger.get_challenge() for _ in range(config.num_challenges)]
     with phase("quotient", phase_times, dev):
-        quotient_lde, quotient_tree = _compute_quotient(
+        quotient_coeffs, quotient_lde, quotient_tree = _compute_quotient(
             stark, trace_lde, aux_lde, instances, ctl_totals, lookup_alphas,
-            public_inputs, alphas, log_n, rate_bits, shift, fri_cfg,
+            public_inputs, alphas, log_n, rate_bits, shift, config,
             fixed_lde=fixed_cm.lde if fixed_cm is not None else None,
-            plan=phase_times, aux_challenges=aux_challenges,
+            plan=phase_times, aux_challenges=aux_challenges, mesh=mesh,
         )
         quotient_cap = gfp.to_u64(quotient_tree.cap)
     challenger.observe_cap(quotient_cap)
@@ -432,13 +481,11 @@ def stark_prove(
     g_h = fh.primitive_root_of_unity(log_n)
     gzeta = (zeta[0] * g_h % P, zeta[1] * g_h % P)
     with phase("openings", phase_times, dev):
-        quotient_coeffs = four_step.best_coset_intt(quotient_lde, shift)
-        empty = gfp.zeros((0, n), dev)
         openings = _compute_openings(
             commitment.coeffs,
-            fixed_cm.coeffs if fixed_cm is not None else empty,
-            aux_coeffs if aux_coeffs is not None else empty,
-            quotient_coeffs[:, :n], zeta, gzeta,
+            fixed_cm.coeffs if fixed_cm is not None else [],
+            aux_coeffs if aux_coeffs is not None else [],
+            quotient_coeffs, zeta, gzeta,
         )
     challenger.observe_elements(openings.transcript_elements())
 
@@ -479,12 +526,14 @@ def _sweep_mode() -> str:
     return mode
 
 
-def _selectors(log_n, rate_bits, shift, dev) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(z_last, l_first, l_last) over the LDE domain."""
+def _selectors(log_n, rate_bits, shift, dev, lo: int = 0,
+               count: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(z_last, l_first, l_last) over the LDE domain's points lo..lo+count-1
+    (default: all of them; lo a multiple of the rate)."""
     n = 1 << log_n
-    m = n << rate_bits
-    xs = _domain_points(log_n + rate_bits, shift, dev)
-    zh = _zh_short(log_n, rate_bits, shift, dev).repeat(m >> rate_bits)
+    count = n << rate_bits if count is None else count
+    xs = _domain_points(log_n + rate_bits, shift, dev, lo, count)
+    zh = _zh_short(log_n, rate_bits, shift, dev).repeat(count >> rate_bits)
     g_last = fh.inv(fh.primitive_root_of_unity(log_n))
     n_inv = fh.inv(n)
     z_last = gfp.sub(xs, gfp.full((), g_last, dev))
@@ -510,29 +559,48 @@ def ir_executor(stark, specs, num_challenges: int, n_lookup_alphas: int, has_aux
 
 def _ir_sweep(stark, trace_lde, fixed_lde, aux_lde, instances, ctl_totals, lookup_alphas,
               public_inputs, alphas, log_n, rate_bits, shift, plan=None,
-              aux_challenges=()) -> torch.Tensor:
+              aux_challenges=()) -> List[torch.Tensor]:
     """Constraint sweep by the recorded IR (stark/ir.py) on the level
-    executor -> (num_challenges, m) accumulators. The executor's input rows
-    are built one domain chunk at a time: local rows, then next rows (the
-    chunk's columns shifted by the rate), per oracle. `plan`, when given,
-    receives the executor's plan of this run as "ir_plan"."""
-    dev = trace_lde.device
-    m = trace_lde.shape[-1]
+    executor, per domain block -> each block's (num_challenges, m / w)
+    accumulators. Each `*_lde` is a list of w domain blocks (one without a
+    mesh). A block's executor input rows are built one chunk at a time:
+    local rows, then next rows (the chunk's columns shifted by the rate,
+    the last ones from a halo of the following block's first `rate`
+    columns, the last block's from the first block's), per oracle. `plan`,
+    when given, receives the executor's plan of this run as "ir_plan"."""
+    w = len(trace_lde)
+    span = trace_lde[0].shape[-1]
     rate = 1 << rate_bits
+    if span < rate:
+        raise ValueError(f"a domain block of {span} points is narrower than the {rate}-row halo")
     ex = ir_executor(stark, tuple(inst.spec for inst in instances), len(alphas),
                      len(lookup_alphas), aux_lde is not None)
-    parts = [p for p in (trace_lde, fixed_lde, aux_lde) if p is not None]
-
-    def head(lo, hi):
-        nxt = torch.arange(lo + rate, hi + rate, device=dev) % m
-        return torch.cat([t for p in parts for t in (p[:, lo:hi], p.index_select(1, nxt))])
-
+    oracles = [p for p in (trace_lde, fixed_lde, aux_lde) if p is not None]
     scalars = (list(public_inputs) + list(alphas) + list(lookup_alphas) + list(aux_challenges)
                + [inst.beta for inst in instances] + [inst.gamma for inst in instances]
                + list(ctl_totals))
-    scal = gfp.from_u64(np.asarray([int(v) % P for v in scalars], dtype=np.uint64), dev)
-    tail = torch.stack(_selectors(log_n, rate_bits, shift, dev))
-    accs = ex.run(head, scal, tail)
+    scal = np.asarray([int(v) % P for v in scalars], dtype=np.uint64)
+
+    def head_of(parts, halo):
+        def head(lo, hi):
+            rows = []
+            for p, h in zip(parts, halo):
+                rows.append(p[:, lo:hi])
+                nxt = p[:, lo + rate:hi + rate]
+                if hi + rate > span:
+                    nxt = torch.cat([nxt, h[:, max(lo + rate - span, 0):hi + rate - span]], dim=1)
+                rows.append(nxt)
+            return torch.cat(rows)
+        return head
+
+    heads, scals, tails = [], [], []
+    for d in range(w):
+        dev = trace_lde[d].device
+        heads.append(head_of([o[d] for o in oracles],
+                             [o[(d + 1) % w][:, :rate].to(dev) for o in oracles]))
+        scals.append(gfp.from_u64(scal, dev))
+        tails.append(torch.stack(_selectors(log_n, rate_bits, shift, dev, d * span, span)))
+    accs = ex.run_blocks(heads, scals, tails)
     if plan is not None:
         plan["ir_plan"] = ex.plan()
     return accs
@@ -540,11 +608,17 @@ def _ir_sweep(stark, trace_lde, fixed_lde, aux_lde, instances, ctl_totals, looku
 
 def _sweep(stark, trace_lde, fixed_lde, aux_lde, instances, ctl_totals, lookup_alphas,
            public_inputs, alphas, log_n, rate_bits, shift, plan=None,
-           aux_challenges=()) -> torch.Tensor:
+           aux_challenges=()) -> List[torch.Tensor]:
     """Direct evaluation of the table's eval (+ CTL, lookup and custom aux
-    constraints) over the whole LDE domain -> (num_challenges, m) accumulators. It has
-    no plan to report: `plan` is left as it is."""
-    dev = trace_lde.device
+    constraints) over the whole LDE domain, its domain blocks joined on
+    the leader -> [(num_challenges, m) accumulators]. It has no plan to
+    report: `plan` is left as it is."""
+    dev = trace_lde[0].device
+
+    def joined(blocks):
+        return None if blocks is None else pmesh.gather(blocks, 1, dev)
+
+    trace_lde, fixed_lde, aux_lde = joined(trace_lde), joined(fixed_lde), joined(aux_lde)
     m = trace_lde.shape[-1]
     rate = 1 << rate_bits
     z_last, l_first, l_last = _selectors(log_n, rate_bits, shift, dev)
@@ -583,28 +657,32 @@ def _sweep(stark, trace_lde, fixed_lde, aux_lde, instances, ctl_totals, lookup_a
         if k_custom:
             stark.eval_custom(ctx, aux_local[off : off + k_custom],
                               aux_next[off : off + k_custom], list(aux_challenges))
-    return torch.stack(consumer.accs)
+    return [torch.stack(consumer.accs)]
 
 
 def _compute_quotient(stark, trace_lde, aux_lde, instances, ctl_totals, lookup_alphas,
-                      public_inputs, alphas, log_n, rate_bits, shift, fri_cfg,
-                      fixed_lde=None, plan=None, aux_challenges=()):
+                      public_inputs, alphas, log_n, rate_bits, shift, config,
+                      fixed_lde=None, plan=None, aux_challenges=(), mesh=None):
+    """The sweep's accumulators (their num_challenges rows joined on the
+    leader), divided by Z_H, to coefficients by a coset iNTT, cut into
+    degree-n chunks and committed -> (chunk coefficient blocks, LDE
+    blocks, tree)."""
     n = 1 << log_n
-    dev = trace_lde.device
+    dev = trace_lde[0].device
     if stark.num_fixed_columns:
         assert fixed_lde is not None, "fixed tables must pass the committed LDE"
     sweep = {"ir": _ir_sweep, "eager": _sweep}[_sweep_mode()]
-    accs = sweep(stark, trace_lde, fixed_lde if stark.num_fixed_columns else None, aux_lde,
-                 instances, ctl_totals, lookup_alphas, public_inputs, alphas,
-                 log_n, rate_bits, shift, plan, aux_challenges)
+    accs = pmesh.gather(
+        sweep(stark, trace_lde, fixed_lde if stark.num_fixed_columns else None, aux_lde,
+              instances, ctl_totals, lookup_alphas, public_inputs, alphas,
+              log_n, rate_bits, shift, plan, aux_challenges), 1, dev)
     m = n << rate_bits
     zh_inv = gfp.inv(_zh_short(log_n, rate_bits, shift, dev)).repeat(m >> rate_bits)
     q_evals = gfp.mul(accs, zh_inv)  # (num_challenges, m)
     q_coeffs = four_step.best_coset_intt(q_evals, shift)
     chunks = stark.quotient_chunks(bool(instances))
     q_chunks = q_coeffs[:, : chunks * n].reshape(len(accs) * chunks, n)
-    quotient_lde = four_step.best_coset_lde(q_chunks, rate_bits, shift)
-    return quotient_lde, merkle.build(quotient_lde, fri_cfg.cap_height)
+    return _commit_gf(q_chunks, config, mesh, from_coeffs=True)
 
 
 def _ext_host_mul(x, y):
@@ -647,47 +725,55 @@ def _batch_combine(parts: List[torch.Tensor], weights: List[Tuple[int, int]]) ->
 
 def _deep_composition(trace_lde, aux_lde, quotient_lde, openings: StarkOpenings, zeta, gzeta,
                       fri_alpha, log_n, rate_bits, shift, fixed_lde=None) -> GF2:
-    """comp(x) = (B0(x)-y0)/(x-zeta) + (B1(x)-y1)/(x-g*zeta).
+    """comp(x) = (B0(x)-y0)/(x-zeta) + (B1(x)-y1)/(x-g*zeta), row by row over
+    the domain: each `*_lde` is a list of domain blocks, each block's part
+    is computed where it lies and the blocks' one extension column is
+    joined on the leader.
 
     batch0 (opened at zeta): trace + fixed + aux + quotient rows, weights
     a^0..; batch1 (opened at g*zeta): trace + fixed + aux rows, weights
     continue a^K..."""
-    dev = trace_lde.device
+    dev = trace_lde[0].device
     m = 1 << (log_n + rate_bits)
-    xs = _domain_points(log_n + rate_bits, shift, dev)
-
-    parts1 = [trace_lde]
+    span = trace_lde[0].shape[-1]
+    oracles = [trace_lde]
     open0 = list(openings.trace_at_zeta)
     open1 = list(openings.trace_at_gzeta)
     if fixed_lde is not None:
-        parts1.append(fixed_lde)
+        oracles.append(fixed_lde)
         open0 += list(openings.fixed_at_zeta)
         open1 += list(openings.fixed_at_gzeta)
     if aux_lde is not None:
-        parts1.append(aux_lde)
+        oracles.append(aux_lde)
         open0 += list(openings.aux_at_zeta)
         open1 += list(openings.aux_at_gzeta)
     open0 += list(openings.quotient_at_zeta)
     open0 = [(int(v[0]), int(v[1])) for v in open0]
     open1 = [(int(v[0]), int(v[1])) for v in open1]
 
-    L = sum(p.shape[0] for p in parts1)
-    K = L + quotient_lde.shape[0]
+    L = sum(o[0].shape[0] for o in oracles)
+    K = L + quotient_lde[0].shape[0]
     a_pows = [(1, 0)]
     for _ in range(K + L - 1):
         a_pows.append(_ext_host_mul(a_pows[-1], fri_alpha))
-
-    b0 = _batch_combine(parts1 + [quotient_lde], a_pows[:K])
     y0 = _weighted_ext_sum(a_pows[:K], open0)
-    b1 = _batch_combine(parts1, a_pows[K:])
     y1 = _weighted_ext_sum(a_pows[K:], open1)
 
-    x_ext = GF2(xs, torch.zeros_like(xs))
-    num0 = gf2x.sub(b0, gf2x.full((), y0, dev))
-    num1 = gf2x.sub(b1, gf2x.full((), y1, dev))
-    den0 = gf2x.sub(x_ext, gf2x.full((), zeta, dev))
-    den1 = gf2x.sub(x_ext, gf2x.full((), gzeta, dev))
-    t0 = gf2x.mul(num0, gf2x.inv(den0))
-    t1 = gf2x.mul(num1, gf2x.inv(den1))
-    assert t0.a.shape == (m,)
-    return gf2x.add(t0, t1)
+    outs = []
+    for d in range(len(trace_lde)):
+        bdev = trace_lde[d].device
+        parts1 = [o[d] for o in oracles]
+        b0 = _batch_combine(parts1 + [quotient_lde[d]], a_pows[:K])
+        b1 = _batch_combine(parts1, a_pows[K:])
+        xs = _domain_points(log_n + rate_bits, shift, bdev, d * span, span)
+        x_ext = GF2(xs, torch.zeros_like(xs))
+        num0 = gf2x.sub(b0, gf2x.full((), y0, bdev))
+        num1 = gf2x.sub(b1, gf2x.full((), y1, bdev))
+        den0 = gf2x.sub(x_ext, gf2x.full((), zeta, bdev))
+        den1 = gf2x.sub(x_ext, gf2x.full((), gzeta, bdev))
+        t0 = gf2x.mul(num0, gf2x.inv(den0))
+        t1 = gf2x.mul(num1, gf2x.inv(den1))
+        outs.append(gf2x.add(t0, t1))
+    comp = GF2(pmesh.gather([o.a for o in outs], 0, dev), pmesh.gather([o.b for o in outs], 0, dev))
+    assert comp.a.shape == (m,)
+    return comp

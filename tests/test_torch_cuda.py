@@ -133,6 +133,41 @@ def test_small_memory_proof_on_card_equals_cpu_and_verifies(card):
 
 
 @pytest.mark.parametrize("encoding", ["i8", "bf16"])
+def test_base_dft_on_a_second_card(card, encoding):
+    """A mesh shard may lie on another card than the current one: the
+    kernel launches on its tensor's card (cuda:1 while cuda:0 is current),
+    equal to the plain version."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    name = bd.KERNELS[encoding]
+    x = _vals((300, 64), 80)
+    with torch.cuda.device(0):
+        before = bd.LAUNCHES[name]
+        got = bd.base_dft(gfp.from_u64(x, "cuda:1"), 6, False, encoding)
+        torch.cuda.synchronize(1)
+    assert got.device == torch.device("cuda", 1)
+    assert bd.LAUNCHES[name] == before + 1
+    np.testing.assert_array_equal(gfp.to_u64(got),
+                                  gfp.to_u64(bd.base_dft_plain(gfp.from_u64(x, "cpu"), 6, False)))
+
+
+def test_small_memory_proof_on_a_card_mesh_equals_cpu(card):
+    """A virtual 4-wide mesh on one card (every shard on cuda:0): the proof
+    of the CPU tier's Memory trace equals the one-device CPU proof."""
+    from ethproof_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = StarkConfig(num_challenges=2, fri_config=FriConfig(
+        rate_bits=2, cap_height=1, proof_of_work_bits=4, num_query_rounds=12,
+        arity_bits=2, final_poly_bits=2))
+    ops = [mem.MemoryOp(0, 1, 5, 1, 0, 1234), mem.MemoryOp(0, 2, 0, 4, 1, 0)]
+    trace = mem.generate_trace(ops, 1 << 8)
+    got = stark_prove(mem.MemoryStark(), trace, [], cfg, device=card,
+                      mesh=make_mesh(devices=["cuda:0"] * 4))
+    want = stark_prove(mem.MemoryStark(), trace, [], cfg, device="cpu")
+    _assert_same(proof_to_numpy(got), proof_to_numpy(want))
+
+
+@pytest.mark.parametrize("encoding", ["i8", "bf16"])
 def test_small_transfer_proof_on_card_equals_cpu(card, monkeypatch, encoding):
     """The five-table transfer at the CPU tier's sizes: made on the card
     under each encoding, every table proof equals the CPU plain path's."""

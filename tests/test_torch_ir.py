@@ -160,8 +160,8 @@ def _sweep_args(t_stark, t_inst, log_n, seed):
     def rand(*shape):
         return rng.integers(0, P, size=shape, dtype=np.uint64)
 
-    def dev(x):
-        return None if x is None else tgf.from_u64(x, "cpu")
+    def dev(x):  # one domain block: the prover's layout without a mesh
+        return None if x is None else [tgf.from_u64(x, "cpu")]
 
     lookup_alphas = [int(v) for v in rand(NUM_CHALLENGES)] if t_stark.lookups else []
     n_aux = len(t_inst) + sum(
@@ -200,7 +200,7 @@ def test_ir_sweep_equals_direct_sweep(monkeypatch, name, budget):
     ex = tprove.ir_executor(t_stark, tuple(i.spec for i in t_inst), NUM_CHALLENGES,
                             len(args[6]), args[3] is not None)
     assert (ex.last_run[0] > 1) == (budget is not None)
-    np.testing.assert_array_equal(tgf.to_u64(got), tgf.to_u64(want))
+    np.testing.assert_array_equal(tgf.to_u64(got[0]), tgf.to_u64(want[0]))
 
 
 def _evm_ctls(machine):

@@ -78,6 +78,8 @@ MODULES = [
     "ethproof_tpu_torch.recursion.machine",
     "ethproof_tpu_torch.recursion.verifier_circuit",
     "ethproof_tpu_torch.recursion.wrap",
+    "ethproof_tpu_torch.parallel",
+    "ethproof_tpu_torch.parallel.mesh",
     "ethproof_tpu_torch.recursion.persist",
     "ethproof_tpu_torch.recursion.root",
     "ethproof_tpu_torch.recursion.aggregate",

@@ -265,10 +265,10 @@ def test_quotient_sweep_equals_reference(monkeypatch, name):
     want = _reference_sweep(j_stark, trace, fixed, aux, j_inst, totals, lookup_alphas, pis,
                             alphas, log_n)
 
-    def dev(x):
-        return None if x is None else tgf.from_u64(x, "cpu")
+    def dev(x):  # one domain block: the prover's layout without a mesh
+        return None if x is None else [tgf.from_u64(x, "cpu")]
 
-    got = tprove._sweep(t_stark, dev(trace), dev(fixed), dev(aux), t_inst, totals,
-                        lookup_alphas, pis, alphas, log_n, RATE_BITS, SHIFT)
+    (got,) = tprove._sweep(t_stark, dev(trace), dev(fixed), dev(aux), t_inst, totals,
+                           lookup_alphas, pis, alphas, log_n, RATE_BITS, SHIFT)
     assert len(got) == NUM_CHALLENGES
     np.testing.assert_array_equal(np.stack([tgf.to_u64(a) for a in got]), want)
