@@ -3,14 +3,15 @@
 The CPU-tier transfer of tests/test_transfer_e2e.py (`make_transfer_witness()`
 with its defaults, `SIZES` for five tables and `SIZES7` for seven, `CFG`) is
 built with each package's own constructors (the port's:
-`witness.synthetic.small_transfer`). Not slow: the port's five- and
-seven-table proofs pass the JAX `verify_transfer` (through `interop`) and the
-port's own, and a flipped opening fails both; the binding modes raise as
-the reference's do. Marked `slow` (the reference's proof takes half an hour
-and more on the CPU): the port's proofs equal the JAX `prove_transfer`'s in
-every field under both NTT encodings, and a proof with the in-circuit
-binding passes the JAX `verify_transfer` while a flipped post state root
-fails its `verify_all_tables`.
+`witness.synthetic.small_transfer`). Not slow: the port's five-table proof
+passes the JAX `verify_transfer` (through `interop`) and the port's own, and
+a flipped opening fails both; the binding modes raise as the reference's
+do. Marked `slow`: the same for the seven-table proof (about 5 min on one
+thread beside five other workers, with cold caches), and (the reference's
+proof takes half an hour and more on the CPU) the port's proofs equal the
+JAX `prove_transfer`'s in every field under both NTT encodings, and a proof
+with the in-circuit binding passes the JAX `verify_transfer` while a
+flipped post state root fails its `verify_all_tables`.
 
 As in tests/test_torch_stark.py, the reference's base-field inverse runs
 un-jitted (`_inv_jit` set to `_inv_impl`): the values are identical and
@@ -75,7 +76,7 @@ def _to_reference_tx(got, j_gi):
     )
 
 
-@pytest.mark.parametrize("tables", [5, 7])
+@pytest.mark.parametrize("tables", [5, pytest.param(7, marks=pytest.mark.slow)])
 def test_transfer_proof_verifies_under_both_verifiers(tables):
     """The port's CPU-tier proof (five tables, or seven with the Keccak pair
     and the binding dropped by the cpu < 2^11 pre-guard) passes the
