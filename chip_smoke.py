@@ -9,9 +9,14 @@ and the script exits non-zero; no phase's failure is caught):
              started together) and print the build seconds and ptxas report;
 2. kernels — hold each kernel against its plain PyTorch version on the card,
              bit for bit (the field is exact: the tolerance is zero), at the
-             main paths' sizes, and time both: `base_dft` (i8 encoding) and
+             main paths' sizes, and time both: `base_dft` (i8 encoding),
              `base_dft_bf16` (bf16 encoding, also against `base_dft_plain`,
-             and on the adversarial all-0xFF-chunk input);
+             and on the adversarial all-0xFF-chunk input) and Poseidon
+             (csrc/poseidon.cu: `permute` against `permute_plain`,
+             `tree_digest` and every level of `merkle.build` against the
+             plain level walk, at Keccak's and Arithmetic's trace and aux
+             trees, inputs over the whole 64-bit range), each beside its
+             bound;
 3. four-step — `best_intt` and `best_coset_lde` of a (28, 2^17) array with
              the kernel against the same with the plain base, on the card;
 4. memory  — a 2^9-row Memory proof made on the card must equal, field for
@@ -109,9 +114,10 @@ and the script exits non-zero; no phase's failure is caught):
 8. census  — both kernels timed at every base-DFT shape the cli,
              contract, wrap and succinct proofs launched, beside their
              bounds, the launch floor and a one-tile call;
-9. result  — one JSON line listing every kernel (launches: base_dft's of
-             the contract path's proof, base_dft_bf16's of the 2^17-row
-             Memory proof's bf16 run), the card's name and power limit, and
+9. result  — one JSON line listing every kernel (launches: base_dft's and
+             the two Poseidon kernels' of the contract path's proof, which
+             must run no plain permutation on the card, base_dft_bf16's of
+             the 2^17-row Memory proof's bf16 run), the card's name and power limit, and
              the last line {"ok": true, "device": {...}}.
 
 The full-width five-table transfer of slice 2 is no longer run: the
@@ -126,7 +132,7 @@ one 2^17-row Memory proof (device kernels by name, idle share, layer
 times); `python3 chip_smoke.py --memory` proves the 2^17-row Memory table
 under each sweep (IR and direct), runs the cli phase and proves the
 contract path once, and prints each phase's seconds and peak device memory;
-`python3 chip_smoke.py --succinct`, `--cli` and `--mesh` build the kernels
+`python3 chip_smoke.py --succinct`, `--cli`, `--mesh` and `--poseidon` build the kernels
 and run that phase alone (`--mesh` proves the 2^17-row Memory trace on one
 device first, for the digest); `python3 chip_smoke.py --root-size` compiles the full-width
 transfer root (the seven-table transfer path's verifier, at
@@ -153,6 +159,21 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 BF16_OPS_PER_S = 989e12
+# H100 SXM instruction rates: 132 SMs at the 1,980 MHz boost clock (NVIDIA
+# H100 whitepaper); an SM issues 4 x 32 thread-instructions a clock and runs
+# 64 32-bit integer operations a clock on its ALU pipe (CUDA C++ Programming
+# Guide, arithmetic instruction throughput, compute capability 9.0); IMAD
+# issues to the FMA pipe instead (Nsight Compute's pipe definitions)
+ISSUE_PER_S = 132 * 128 * 1.98e9
+ALU_PER_S = 132 * 64 * 1.98e9
+# SASS instructions of one permutation of csrc/poseidon.cu's level kernel:
+# 30 times the round loop's body, counted from `cuobjdump -sass` of the sm_90a
+# build (CUDA 12.8), the few hundred around the loop left out. The body is
+# 2,161 instructions: 758 IMADs, 41 of the uniform datapath, a branch and
+# 1,361 for the ALU pipe (VIADD counted there). The permute kernel's differ
+# by under 1%.
+POSEIDON_INSTRUCTIONS = 30 * 2161
+POSEIDON_ALU_INSTRUCTIONS = 30 * 1361
 
 LOG_ROWS = 17  # MemoryStark floor: DEFAULT_RANGES["memory"] starts at 2^17
 MESH_WIDTH = 4  # the mesh phase's virtual mesh on the one card
@@ -475,6 +496,170 @@ def phase_kernels_bf16(card: str) -> dict:
     return report
 
 
+@contextlib.contextmanager
+def plain_permutation():
+    """`poseidon.permute` as the plain PyTorch permutation, on any device."""
+    from ethproof_tpu_torch.hash import poseidon
+
+    saved = poseidon.permute
+    poseidon.permute = poseidon.permute_plain
+    try:
+        yield
+    finally:
+        poseidon.permute = saved
+
+
+def plain_tree(rows, cap_height: int) -> list:
+    """`merkle.build(rows, cap_height).levels` by the plain path on the rows'
+    device: the leaf digest as the walk of `_level_plain` over zero-padded
+    groups of four (L > 4), in `LEAF_BLOCK_ELEMS` blocks, then two_to_one of
+    siblings 0::2 / 1::2 up to the cap."""
+    import torch
+
+    from ethproof_tpu_torch.hash import merkle, poseidon
+
+    length, n = rows.shape
+    k = (length + 3) // 4
+    block = max(1, merkle.LEAF_BLOCK_ELEMS // length)
+    digests = []
+    with plain_permutation():
+        for s in range(0, n, block):
+            r = rows[:, s : s + block]
+            pad = torch.zeros((4 * k - length, r.shape[1]), dtype=torch.int64, device=r.device)
+            d = torch.cat([r, pad]).reshape(k, 4, -1).movedim(1, 0)
+            while d.shape[1] > 1:
+                d = poseidon._level_plain(d)
+            digests.append(d[:, 0])
+        levels = [torch.cat(digests, dim=1)]
+        while levels[-1].shape[1] > 1 << cap_height:
+            d = levels[-1]
+            levels.append(poseidon.two_to_one(d[:, 0::2], d[:, 1::2]))
+    return levels
+
+
+def tree_work(length: int, n: int, cap_height: int):
+    """(permutations, bytes) of `merkle.build` of (length, n) rows: each
+    level reads its input once and writes its output once (8 B an element);
+    a group's odd carry is a copy."""
+    k = (length + 3) // 4
+    perms, moved = (k - 1) * n, 8 * length * n
+    while k > 1:
+        k = (k + 1) // 2
+        moved += 2 * 8 * 4 * k * n if k > 1 else 8 * 4 * k * n
+    m = n
+    while m > 1 << cap_height:
+        perms += m // 2
+        moved += 8 * 4 * (m + m // 2)
+        m //= 2
+    return perms, moved
+
+
+def poseidon_bound(permutations: int, moved: int):
+    """(bound ms, what binds): the bytes over the HBM rate, the permutations'
+    SASS instructions over the issue rate, and their ALU-pipe instructions
+    over that pipe's rate."""
+    limits = {"bytes": moved / HBM_BYTES_PER_S,
+              "issue": permutations * POSEIDON_INSTRUCTIONS / ISSUE_PER_S,
+              "ALU pipe": permutations * POSEIDON_ALU_INSTRUCTIONS / ALU_PER_S}
+    bound_by = max(limits, key=limits.get)
+    return 1e3 * limits[bound_by], bound_by
+
+
+def phase_poseidon(card: str) -> list:
+    """csrc/poseidon.cu against the plain PyTorch path on the card, bit for
+    bit, on seeded u64 inputs over the whole 64-bit range (lanes >= p
+    included), at the main path's sizes, both timed: `permute` against
+    `permute_plain` at 2^15 states (the PoW grind's batch) and 2^22;
+    `tree_digest` and `merkle.build` (cap height 4, every level; the Merkle
+    levels through `merkle_level`) against the plain walk of `_level_plain`
+    and two_to_one of siblings, at Keccak's trace tree ((5644, 2^14) rows)
+    and Arithmetic's trace and aux trees ((430, 2^17), (708, 2^17))."""
+    import torch
+
+    from ethproof_tpu_torch.hash import merkle, poseidon
+
+    rng = np.random.default_rng(13)
+
+    def raw(shape):
+        x = rng.integers(0, 1 << 64, size=shape, dtype=np.uint64)
+        return torch.from_numpy(x.view(np.int64)).to("cuda")
+
+    warm = raw((12, 2))
+    poseidon.permute(warm), poseidon.permute_plain(warm)  # first-use costs stay out
+    reports = []
+    for log_n in (15, 22):
+        n = 1 << log_n
+        states = raw((12, n))
+        got = poseidon.permute(states)
+        want, plain_ms = timed(lambda: poseidon.permute_plain(states))
+        err = max_abs_err(got, want)
+        if err != 0.0:
+            raise AssertionError(f"poseidon permute n=2^{log_n}: kernel != plain ({err})")
+        ms = cuda_ms(lambda: poseidon.permute(states), 10)
+        bound_ms, bound_by = poseidon_bound(n, 2 * 8 * 12 * n)
+        print(f"[poseidon] permute (12, 2^{log_n}): equal bits to permute_plain; kernel "
+              f"{ms:.4f} ms ({n / ms / 1e3:.1f} M permutations/s), plain {plain_ms:.2f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of it")
+        if log_n == 22:
+            reports.append({
+                "name": "poseidon_permute",
+                "route": "cuda",
+                "source": "ethproof_tpu_torch/csrc/poseidon.cu",
+                "replaces": "ethproof_tpu/hash/poseidon.py:123 (XLA ops, no Pallas kernel)",
+                "launches": 0,
+                "max_abs_err": err,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "library_ms": None,
+            })
+        del states, got, want
+    for length, log_n in ((5644, 14), (430, 17), (708, 17)):
+        n = 1 << log_n
+        rows = raw((length, n))
+        want, plain_ms = timed(lambda: plain_tree(rows, 4))
+        digests = poseidon.tree_digest(rows)
+        err = max_abs_err(digests, want[0])
+        tree = merkle.build(rows, 4)
+        if len(tree.levels) != len(want):
+            raise AssertionError(f"poseidon ({length}, 2^{log_n}): {len(tree.levels)} levels "
+                                 f"!= the plain tree's {len(want)}")
+        for got, w in zip(tree.levels, want):
+            err = max(err, max_abs_err(got, w))
+        if err != 0.0:
+            raise AssertionError(f"poseidon ({length}, 2^{log_n}): tree_digest or merkle.build "
+                                 f"!= the plain path ({err})")
+        del tree, digests, want
+        digest_ms = cuda_ms(lambda: poseidon.tree_digest(rows), 3)
+        ms = cuda_ms(lambda: merkle.build(rows, 4), 3)
+        perms, moved = tree_work(length, n, 4)
+        bound_ms, bound_by = poseidon_bound(perms, moved)
+        print(f"[poseidon] ({length}, 2^{log_n}) rows, cap height 4: tree_digest and every "
+              f"level of merkle.build equal bits to the plain path; tree_digest {digest_ms:.3f} "
+              f"ms, merkle.build {ms:.3f} ms ({perms} permutations, {perms / ms / 1e3:.1f} M/s), "
+              f"plain {plain_ms:.1f} ms, bound {bound_ms:.3f} ms ({bound_by}: "
+              f"{moved / 1e9:.3f} GB), {100 * bound_ms / ms:.1f}% of it")
+        if length == 5644:
+            reports.append({
+                "name": "poseidon_level",
+                "route": "cuda",
+                "source": "ethproof_tpu_torch/csrc/poseidon.cu",
+                "replaces": "ethproof_tpu/hash/poseidon.py:192 (XLA ops, no Pallas kernel)",
+                "launches": 0,
+                "max_abs_err": err,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "library_ms": None,
+            })
+        del rows
+    print("[poseidon] the JSON line reports permute at 2^22 states and merkle.build of "
+          "Keccak's (5644, 2^14) trace rows (launches: the contract path's proof)")
+    return reports
+
+
 def phase_four_step() -> None:
     from unittest import mock
 
@@ -559,11 +744,27 @@ def phase_small_proof(on_cpu_future) -> None:
 
 
 def reset_launches() -> None:
+    from ethproof_tpu_torch.hash import poseidon
     from ethproof_tpu_torch.poly import base_dft as bd
 
     for name in bd.LAUNCHES:
         bd.LAUNCHES[name] = 0
     bd.CENSUS.clear()
+    poseidon.CENSUS.clear()
+
+
+def poseidon_launches() -> dict:
+    """The Poseidon kernels' launches since `reset_launches`, under their
+    JSON names (`level_kernel` runs the leaf and node levels); raises if a
+    plain permutation ran on a CUDA tensor."""
+    from ethproof_tpu_torch.hash import poseidon
+
+    census = poseidon.CENSUS
+    if census[("plain", "cuda")]:
+        raise AssertionError(f"{census[('plain', 'cuda')]} plain permutations ran on the card")
+    return {"poseidon_permute": census[("permute", "launches")],
+            "poseidon_level": census[("leaf_level", "launches")]
+            + census[("node_level", "launches")]}
 
 
 def same(x, y) -> bool:
@@ -1476,6 +1677,7 @@ def prove_contract(gi, config, card: str, tag: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, census = dict(bd.LAUNCHES), dict(bd.CENSUS)
+    launches.update(poseidon_launches())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if proof.binding_multi is None:
         raise AssertionError("the contract path dropped its in-circuit binding")
@@ -1733,14 +1935,14 @@ def main() -> int:
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     modes = {"--profile": phase_profile, "--memory": phase_memory,
              "--succinct": phase_succinct_alone, "--root-size": phase_root_size,
-             "--cli": phase_cli, "--mesh": phase_mesh_alone}
+             "--cli": phase_cli, "--mesh": phase_mesh_alone, "--poseidon": phase_poseidon}
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         phase_build()
         modes[sys.argv[1]](card)
         return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]} (--profile, --memory, --succinct, "
-              "--root-size, --cli or --mesh)", file=sys.stderr)
+              "--root-size, --cli, --mesh or --poseidon)", file=sys.stderr)
         return 2
     # the plain versions' digit matmuls run in float64, exact whatever the
     # float32 setting: every comparison below runs with TF32 allowed
@@ -1762,7 +1964,8 @@ def main() -> int:
         on_cpu = pool.submit(cpu_small_transfers)
         on_cpu_succinct = pool.submit(cpu_succinct_transfers)
         reports = [run("kernels", phase_kernels, card),
-                   run("kernels_bf16", phase_kernels_bf16, card)]
+                   run("kernels_bf16", phase_kernels_bf16, card),
+                   *run("poseidon", phase_poseidon, card)]
         run("adversarial", phase_adversarial, card)
         run("four_step", phase_four_step)
         run("small_proof", phase_small_proof, cpu_proofs)

@@ -2,11 +2,13 @@
 
 Counterpart: ethproof_tpu/hash/merkle.py:101-145. Leaves are the columns
 of a (L, N) row matrix, digested with `poseidon.tree_digest`; interior
-nodes are `two_to_one`; the tree stops at `cap_height`, whose 2^cap_height
-digests are the commitment. All levels are kept, so query paths are
-gathers. On a mesh (`build_blocks`) the leaves lie in contiguous domain
-blocks on several devices, each block a whole subtree built where it
-lies; the counterpart leaves that split to XLA's partitioner.
+nodes are `two_to_one` of siblings, a level at a time
+(`poseidon.merkle_level`, one kernel launch on a card); the tree stops at
+`cap_height`, whose 2^cap_height digests are the commitment. All levels
+are kept, so query paths are gathers. On a mesh (`build_blocks`) the
+leaves lie in contiguous domain blocks on several devices, each block a
+whole subtree built where it lies; the counterpart leaves that split to
+XLA's partitioner.
 """
 
 from __future__ import annotations
@@ -18,8 +20,9 @@ import torch
 from . import poseidon
 
 # Leaves are digested in domain blocks of at most this many input elements
-# (the counterpart's `_LEAF_BLOCK_ELEMS`, merkle.py:62): the permutation's
-# temporaries then scale with the block, not with the whole matrix.
+# (the counterpart's `_LEAF_BLOCK_ELEMS`, merkle.py:62): the plain
+# permutation's temporaries, and on a card the first level's digests, then
+# scale with the block, not with the whole matrix.
 LEAF_BLOCK_ELEMS = 1 << 25
 
 
@@ -61,7 +64,7 @@ def _subtree(rows: torch.Tensor, levels: int) -> List[torch.Tensor]:
                          for s in range(0, n, block)], dim=1)
     out = [digests]
     for _ in range(levels):
-        digests = poseidon.two_to_one(digests[:, 0::2], digests[:, 1::2])
+        digests = poseidon.merkle_level(digests)
         out.append(digests)
     return out
 
@@ -93,7 +96,7 @@ def build_blocks(blocks: List[torch.Tensor], cap_height: int) -> MerkleTree:
     top = []
     digests = roots
     while digests.shape[1] > 1 << cap_height:
-        digests = poseidon.two_to_one(digests[:, 0::2], digests[:, 1::2])
+        digests = poseidon.merkle_level(digests)
         top.append(digests)
     return MerkleTree(subtrees, top, digests, cap_height)
 

@@ -236,16 +236,19 @@ def test_ir_sweep_on_card_equals_cpu_direct_sweep(card):
         machine.num_public_inputs)], [int(v) for v in rand(2)])
 
     def args(dev):
-        t, f, a = (gfp.from_u64(x, dev) for x in host)
+        # each LDE as the list of its domain blocks: one, without a mesh
+        t, f, a = ([gfp.from_u64(x, dev)] for x in host)
         totals, lookups, pis, alphas = scalars
         return (machine, t, f, a, inst, totals, lookups, pis, alphas, log_n, rate_bits, 7)
 
-    want = gfp.to_u64(sp._sweep(*args("cpu")))
+    (want,) = sp._sweep(*args("cpu"))
+    want = gfp.to_u64(want)
     for budget in (None, 1 << 22):
         if budget is not None:
             os.environ["ETHPROOF_SWEEP_BUDGET"] = str(budget)
         try:
-            got = gfp.to_u64(sp._ir_sweep(*args(card)))
+            (got,) = sp._ir_sweep(*args(card))
+            got = gfp.to_u64(got)
         finally:
             os.environ.pop("ETHPROOF_SWEEP_BUDGET", None)
         np.testing.assert_array_equal(got, want)
@@ -280,6 +283,137 @@ def test_machine_proof_on_card_equals_cpu(card):
     got = tall.prove_evm_tables(machine, res, sizes, cfg, device=card)
     _assert_same(multi_proof_to_numpy(got), multi_proof_to_numpy(want))
     assert tall.verify_evm_tables(machine, res.pi_words, got, cfg, device=card)
+
+
+# -- the Poseidon kernel (csrc/poseidon.cu) -----------------------------------------
+
+# lanes >= p: 2^64 - 1, p, p + 1, 2^63; and 0, p - 1
+POSEIDON_EDGES = ((1 << 64) - 1, gfp.P, gfp.P + 1, 1 << 63, 0, gfp.P - 1)
+
+
+def _u64_with_edges(shape, seed):
+    """Seeded u64 values, the first columns of each row the edge values."""
+    x = np.random.default_rng(seed).integers(0, 1 << 64, size=shape, dtype=np.uint64)
+    flat = x.reshape(shape[0], -1)
+    k = min(len(POSEIDON_EDGES), flat.shape[1])
+    flat[:, :k] = np.asarray(POSEIDON_EDGES[:k], dtype=np.uint64)
+    return x
+
+
+def _raw(x, device):
+    """u64 values as they are (no reduction mod p) in an int64 tensor."""
+    return torch.from_numpy(np.ascontiguousarray(x).view(np.int64)).to(device)
+
+
+@pytest.mark.parametrize("n", [1, 7, 4096])
+def test_poseidon_permute_kernel_equals_plain(card, n):
+    """The kernel's permutation of seeded states, many lanes >= p, equals
+    the plain one on the CPU and on the card; one launch and n
+    permutations counted."""
+    from ethproof_tpu_torch.hash import poseidon
+
+    x = _u64_with_edges((12, n), 700 + n)
+    before = dict(poseidon.CENSUS)
+    got = poseidon.permute(_raw(x, card))
+    assert poseidon.CENSUS[("permute", "launches")] == before.get(("permute", "launches"), 0) + 1
+    assert poseidon.CENSUS[("permute", "permutations")] == \
+        before.get(("permute", "permutations"), 0) + n
+    assert poseidon.CENSUS[("plain", "cuda")] == before.get(("plain", "cuda"), 0)
+    want = gfp.to_u64(poseidon.permute_plain(_raw(x, "cpu")))
+    np.testing.assert_array_equal(gfp.to_u64(got), want)
+    np.testing.assert_array_equal(gfp.to_u64(poseidon.permute_plain(_raw(x, card))), want)
+
+
+@pytest.mark.parametrize("length", [1, 3, 4, 5, 8, 9, 12, 430, 708, 1411])
+def test_poseidon_tree_digest_kernel_equals_cpu(card, length):
+    """tree_digest through the kernel (one launch a level) equals the CPU's
+    plain walk on an odd column count with lanes >= p, on contiguous rows
+    and on a strided column view; a leaf sponge and a one-element batch
+    too."""
+    from ethproof_tpu_torch.hash import poseidon
+
+    x = _u64_with_edges((length, 2 * 37), 800 + length)
+    want = gfp.to_u64(poseidon.tree_digest(_raw(x[:, ::2], "cpu")))
+    launches = poseidon.CENSUS[("leaf_level", "launches")]
+    np.testing.assert_array_equal(gfp.to_u64(poseidon.tree_digest(_raw(x, card)[:, ::2])), want)
+    np.testing.assert_array_equal(
+        gfp.to_u64(poseidon.tree_digest(_raw(x[:, ::2], card))), want)
+    assert poseidon.CENSUS[("leaf_level", "launches")] == launches + (2 if length > 4 else 0)
+    np.testing.assert_array_equal(gfp.to_u64(poseidon.tree_digest(_raw(x[:, 3], card))),
+                                  gfp.to_u64(poseidon.tree_digest(_raw(x[:, 3], "cpu"))))
+    np.testing.assert_array_equal(gfp.to_u64(poseidon.hash_n_to_m_no_pad(_raw(x, card))),
+                                  gfp.to_u64(poseidon.hash_n_to_m_no_pad(_raw(x, "cpu"))))
+
+
+@pytest.mark.parametrize("cap_height", [0, 2, 4])
+def test_merkle_tree_on_card_equals_cpu(card, cap_height):
+    """merkle.build on the card (the leaf digest and every level through the
+    kernel) equals the CPU's level for level; open_path equal, verify_path
+    accepts the path on the card and refuses a changed leaf."""
+    from ethproof_tpu_torch.hash import merkle, poseidon
+
+    rows = _vals((430, 256), 900 + cap_height)
+    got = merkle.build(gfp.from_u64(rows, card), cap_height)
+    want = merkle.build(gfp.from_u64(rows, "cpu"), cap_height)
+    assert len(got.levels) == len(want.levels)
+    for g, w in zip(got.levels, want.levels):
+        np.testing.assert_array_equal(gfp.to_u64(g), gfp.to_u64(w))
+    idx = torch.tensor([0, 5, 101, 255])
+    path = merkle.open_path(got, idx)
+    np.testing.assert_array_equal(gfp.to_u64(path), gfp.to_u64(merkle.open_path(want, idx)))
+    plain = poseidon.CENSUS[("plain", "cuda")]
+    leaves = got.levels[0][:, idx.to(card)]
+    assert bool(merkle.verify_path(leaves, idx, path, got.cap).all())
+    bad = leaves.clone()
+    bad[0, 2] ^= 1
+    assert merkle.verify_path(bad, idx, path, got.cap).tolist() == [True, True, False, True]
+    assert bool(merkle.verify_path(leaves[:, 1], 5, path[:, :, 1], got.cap))
+    assert poseidon.CENSUS[("plain", "cuda")] == plain
+
+
+def test_grind_pow_on_card_equals_cpu(card):
+    """The proof-of-work grind finds the same witness on the card."""
+    from ethproof_tpu_torch.fri import prove as fp
+
+    for challenge, bits in ((int(_vals(1, 950)[0]), 10), (12345, 13)):
+        assert fp.grind_pow(challenge, bits, device=card) == fp.grind_pow(challenge, bits,
+                                                                          device="cpu")
+
+
+def test_memory_proof_on_card_runs_no_plain_permutation(card):
+    """A small Memory proof on the card hashes through the kernel alone: no
+    plain permutation on a CUDA tensor, kernel launches for leaves, nodes
+    and the grind."""
+    from ethproof_tpu_torch.hash import poseidon
+
+    cfg = StarkConfig(num_challenges=2, fri_config=FriConfig(
+        rate_bits=2, cap_height=1, proof_of_work_bits=4, num_query_rounds=12,
+        arity_bits=2, final_poly_bits=2))
+    ops = [mem.MemoryOp(0, 1, 5, 1, 0, 1234), mem.MemoryOp(0, 2, 0, 4, 1, 0)]
+    trace = mem.generate_trace(ops, 1 << 8)
+    before = dict(poseidon.CENSUS)
+    got = stark_prove(mem.MemoryStark(), trace, [], cfg, device=card)
+    spent = {k: v - before.get(k, 0) for k, v in poseidon.CENSUS.items()}
+    assert spent.get(("plain", "cuda"), 0) == 0
+    for entry in ("leaf_level", "node_level", "permute"):
+        assert spent[(entry, "launches")] > 0
+    assert stark_verify(mem.MemoryStark(), got, cfg, device=card)
+
+
+def test_poseidon_on_a_second_card(card):
+    """The kernel launches on its tensor's card (cuda:1 while cuda:0 is
+    current), as a mesh block's tree needs."""
+    from ethproof_tpu_torch.hash import merkle
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    rows = _vals((9, 64), 960)
+    with torch.cuda.device(0):
+        got = merkle.build(gfp.from_u64(rows, "cuda:1"), 1)
+        torch.cuda.synchronize(1)
+    assert got.cap.device == torch.device("cuda", 1)
+    np.testing.assert_array_equal(gfp.to_u64(got.cap),
+                                  gfp.to_u64(merkle.build(gfp.from_u64(rows, "cpu"), 1).cap))
 
 
 def _leaf_machine():
